@@ -1,0 +1,149 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card, at the main path's shapes.  Every test here needs a CUDA device
+and skips without one (the kernels have no CPU mode).  This file imports no
+JAX, so it runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+
+Tolerances: K1 FAST maps bit-exact; K2 matcher idx/dist exact; K3 pose LM
+T within atol 1e-3 and inlier agreement >= 0.99 (block reductions sum in
+another order than the plain version); FrameStep on the GPU against the
+same step on the CPU: identical keypoints, >= 99 % equal matches, T within
+atol 1e-3.
+"""
+import numpy as np
+import pytest
+import torch
+
+from openvslam_tpu_torch import kernels
+from openvslam_tpu_torch.camera import Perspective
+from openvslam_tpu_torch.models.frame_step import FrameStep
+from openvslam_tpu_torch.ops import fast, match as M, pose_lm, pyramid, se3
+from openvslam_tpu_torch.ops.orb import pack_bits
+from openvslam_tpu_torch.utils import synthetic
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(7)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_fast_kernel_equals_plain(rng, cuda):
+    img = torch.from_numpy(rng.integers(0, 256, (480, 640)).astype(np.float32)).to(cuda)
+    levels = pyramid.build_pyramid(img, 8, 1.2)
+    before = kernels.launch_counts()["fast_score_maps"]
+    got = fast.fast_score_maps_levels(levels, 20.0, 7.0)
+    assert kernels.launch_counts()["fast_score_maps"] == before + 1
+    for (hi, lo), im in zip(got, levels):
+        p_hi, p_lo = fast.fast_score_maps(im, [20.0, 7.0])
+        assert torch.equal(hi, p_hi) and torch.equal(lo, p_lo)
+
+
+def _match_problem(rng, L, K, device):
+    a_desc = rng.integers(0, 2, (L, 256)).astype(np.int8)
+    b_desc = rng.integers(0, 2, (K, 256)).astype(np.int8)
+    for i in range(0, min(L, K), 3):                 # near-duplicates and ties
+        b_desc[i % K] = a_desc[i]
+    uv = rng.uniform(0, [640, 480], (L, 2)).astype(np.float32)
+    b_xy = rng.uniform(0, [640, 480], (K, 2)).astype(np.float32)
+    b_xy[: K // 2] = uv[: K // 2] + rng.normal(0, 5, (K // 2, 2))
+    t = [pack_bits(torch.from_numpy(a_desc)), pack_bits(torch.from_numpy(b_desc)),
+         torch.from_numpy(uv), torch.from_numpy(rng.random(L) > 0.1),
+         torch.from_numpy(rng.uniform(4, 30, L).astype(np.float32)),
+         torch.from_numpy(rng.integers(-1, 8, L)), torch.from_numpy(b_xy),
+         torch.from_numpy(rng.integers(0, 8, K)), torch.from_numpy(rng.random(K) > 0.1)]
+    return [x.to(device) for x in t]
+
+
+@pytest.mark.parametrize("ratio,cross", [(None, True), (0.9, True), (0.9, False), (None, False)])
+def test_match_kernel_equals_plain(rng, cuda, ratio, cross):
+    for L, K in ((4096, 1032), (300, 257)):
+        args = _match_problem(rng, L, K, cuda)
+        for max_dist in (M.HAMMING_DIST_THR_HIGH, M.HAMMING_DIST_THR_LOW):
+            before = kernels.launch_counts()["projection_match"]
+            ik, dk = M.projection_scale_match(*args, max_dist=max_dist, ratio=ratio, cross_check=cross)
+            assert kernels.launch_counts()["projection_match"] == before + 1
+            ip, dp = M.projection_scale_match_plain(*args, max_dist=max_dist, ratio=ratio,
+                                                    cross_check=cross)
+            assert torch.equal(ik, ip) and torch.equal(dk, dp)
+            assert int((ik >= 0).sum()) > 0
+    args[3] = torch.zeros_like(args[3])               # everything gated out
+    assert bool((M.projection_scale_match(*args)[0] == -1).all())
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_pose_lm_kernel_equals_plain(rng, cuda, stereo):
+    n = 1032
+    cam = Perspective(fx=500.0, fy=500.0, cx=320.0, cy=240.0, focal_x_baseline=50.0)
+    pts = synthetic.landmark_cloud(rng, n, center=(0, 0, 6), extent=(4, 3, 2))
+    T_gt = synthetic.lookat_pose_cw((0.3, -0.2, 0.5), (0, 0, 6))
+    pc = torch.from_numpy(((T_gt[:3, :3] @ pts.T).T + T_gt[:3, 3]).astype(np.float32))
+    uv, depth, _ = cam.project(pc)
+    uv = uv.numpy() + rng.standard_normal((n, 2)) * 0.5
+    ur = uv[:, 0] - 50.0 / np.maximum(depth.numpy(), 1e-6) if stereo else np.full(n, -1.0)
+    if stereo:
+        ur[rng.random(n) < 0.3] = -1.0
+    obs = np.concatenate([uv, ur[:, None]], 1)
+    out = rng.choice(n, 200, replace=False)
+    obs[out, :2] += (rng.random((200, 2)) - 0.5) * 100 + 20
+    pts[:10] = -pts[:10]                              # behind the camera
+    mask = rng.random(n) > 0.1
+    xi = torch.tensor([0.03, -0.02, 0.04, 0.1, -0.08, 0.05], dtype=torch.float64)
+    T0 = (se3.se3_exp(xi).numpy() @ T_gt).astype(np.float32)
+    sig = (1.2 ** rng.integers(0, 4, n)) ** 2
+    args = [torch.from_numpy(np.asarray(a, dt)).to(cuda) for a, dt in
+            ((T0, np.float32), (pts, np.float32), (obs, np.float32), (sig, np.float32), (mask, bool))]
+    kw = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, fxb=50.0, chi2_thr=7.815 if stereo else 5.991)
+    before = kernels.launch_counts()["pose_lm"]
+    T_k, inl_k, _, _ = pose_lm.pose_lm(*args, **kw)
+    assert kernels.launch_counts()["pose_lm"] == before + 1
+    T_p, inl_p, _, _ = pose_lm.pose_lm_plain(*args, **kw)
+    assert float((T_k - T_p).abs().max()) <= 1e-3
+    assert float((inl_k == inl_p).float().mean()) >= 0.99
+    assert not bool(inl_k[:10].any()) and not bool(inl_k[~args[4]].any())
+    assert float(np.abs(T_k.cpu().numpy()[:3, 3] - T_gt[:3, 3]).max()) < 2e-2
+
+
+def test_frame_step_gpu_matches_cpu(cuda):
+    H, W, L = 240, 320, 512
+    cam = Perspective(fx=260.0, fy=260.0, cx=160.0, cy=120.0, cols=W, rows=H)
+    scene = synthetic.PatchSceneRenderer(np.random.default_rng(5), n_points=2000, center=(0, 0, 6),
+                                         extent=(7, 5, 2.5), patch=7, rows=H, cols=W)
+    poses = synthetic.orbit_trajectory(40, radius=2.5, target=(0, 0, 6), arc=np.pi / 4)
+    img0, img1 = (scene.render(cam, p) for p in poses[:2])
+    steps = {d: FrameStep(cam, max_keypts=400, num_levels=4, lm_capacity=L, device=d)
+             for d in ("cpu", cuda)}
+    # local map: scene points within 3 px of a frame-0 keypoint, with its descriptor
+    kp0 = steps["cpu"].frontend.extract(torch.from_numpy(img0))
+    pc0 = (poses[0][:3, :3] @ scene.points.T).T + poses[0][:3, 3]
+    uv0, _, vis0 = cam.project(torch.from_numpy(pc0.astype(np.float32)))
+    dmin, j = torch.cdist(uv0, kp0.xy).masked_fill(~kp0.valid[None, :], 1e9).min(1)
+    rows = torch.nonzero(vis0 & (dmin < 3.0))[:, 0][:L]
+    n = rows.shape[0]
+    assert n >= 120
+    lm = dict(pos=torch.zeros(L, 3), desc=torch.zeros(L, 8, dtype=torch.int32),
+              valid=torch.arange(L) < n)
+    lm["pos"][:n] = torch.from_numpy(scene.points.astype(np.float32))[rows]
+    lm["desc"][:n] = kp0.desc_u32[j[rows]]
+    lvl = torch.full((L,), -1, dtype=torch.int64)
+    T_pred = torch.from_numpy(poses[0].astype(np.float32))
+    res = {}
+    for d, fs in steps.items():
+        kernels.reset_launch_counts()
+        res[d] = fs.step(torch.from_numpy(img1).to(d), T_pred.to(d), lm["pos"].to(d),
+                         lm["desc"].to(d), lm["valid"].to(d), lvl.to(d))
+        counts = kernels.launch_counts()
+        assert (min(counts.values()) == 1) if d == cuda else (max(counts.values()) == 0), counts
+    g, c = res[cuda], res["cpu"]
+    assert torch.equal(g.kp_xy.cpu(), c.kp_xy) and torch.equal(g.kp_valid.cpu(), c.kp_valid)
+    assert float((g.lm_kpt_idx.cpu() == c.lm_kpt_idx).float().mean()) >= 0.99
+    assert float((g.T_cw.cpu() - c.T_cw).abs().max()) <= 1e-3
