@@ -46,12 +46,12 @@ class LevelTable(ctypes.Structure):
 
 _SIGNATURES = {
     "fast": ("fast_score_maps_levels", [_P, _P, _P, LevelTable, _F, _F, _P]),
-    "match": ("projection_match", [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _F, _I,
-                                   _P, _P, _P, _P, _P, _P]),
-    "pose_lm": ("pose_lm", [_P, _P, _P, _P, _P, _I, _I,
+    "match": ("projection_match", [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+                                   _I, _I, _F, _I, _I, _I, _I, _I, _F, _I,
+                                   _P, _P, _P, _P]),
+    "pose_lm": ("pose_lm", [_P, _P, _P, _I, _P, _P, _I,
                             _F, _F, _F, _F, _F, _F, _I, _I,
-                            _P, _P, _P, _P]),
+                            _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

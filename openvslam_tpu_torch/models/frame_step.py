@@ -34,7 +34,8 @@ def match_and_optimize(cam, num_levels, scale_factors, sigma2, pose_core,
     idx, _ = M.projection_scale_match(
         lm_desc_u32, kp_desc_u32, uv, vis, radius, lm_pred_level,
         und, kp_level, kp_valid,
-        max_dist=M.HAMMING_DIST_THR_HIGH, ratio=0.9, cross_check=True)
+        max_dist=M.HAMMING_DIST_THR_HIGH, ratio=0.9, cross_check=True,
+        image_size=(cam.cols, cam.rows))
     kpt = torch.clamp(idx, min=0).to(torch.int64)
     obs_sig = sigma2[torch.clamp(kp_level[kpt], 0, num_levels - 1)]
     res = pose_core(T_pred, lm_pos, und[kpt], obs_sig, idx >= 0)

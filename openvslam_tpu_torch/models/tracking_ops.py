@@ -27,7 +27,7 @@ def match_landmarks_by_projection(cam, T_cw, lm_pos, lm_desc_u32, lm_valid,
     idx, dist = M.projection_scale_match(
         lm_desc_u32, kpt_desc_u32, uv, vis, radius, lm_pred_level,
         kpt_xy_undist, kpt_level, kpt_valid,
-        max_dist=max_dist, ratio=ratio, cross_check=True)
+        max_dist=max_dist, ratio=ratio, cross_check=True, image_size=(cam.cols, cam.rows))
     return idx, dist, vis
 
 

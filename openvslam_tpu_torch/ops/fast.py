@@ -67,17 +67,12 @@ def fast_score_maps(img: torch.Tensor, thresholds) -> List[torch.Tensor]:
 FAST_TILE_X, FAST_TILE_Y = 32, 8   # must match csrc/fast.cu
 
 
-def fast_score_maps_levels(level_imgs, thr_hi: float, thr_lo: float):
-    """Both score maps of every pyramid level: [(hi, lo), ...].
-
-    CPU tensors take the plain version level by level; CUDA tensors take
-    kernel K1, one launch over all levels (each level's 3-px frame zeroed
-    in the kernel).  Any other device raises."""
+def kernel_args(level_imgs, thr_hi: float, thr_lo: float):
+    """Lay out the operands of one K1 launch over all levels and allocate
+    its outputs.  Returns (ctypes arguments of ``fast_score_maps_levels`` in
+    csrc/fast.cu, [(hi, lo) per level], tensors to keep alive); the
+    arguments hold pointers that must outlive the launch."""
     dev = level_imgs[0].device
-    if dev.type == "cpu":
-        return [tuple(fast_score_maps(im, [thr_hi, thr_lo])) for im in level_imgs]
-    if dev.type != "cuda":
-        raise RuntimeError(f"fast_score_maps_levels: unsupported device {dev}")
     n = len(level_imgs)
     if n > kernels.MAX_LEVELS:
         raise ValueError(f"at most {kernels.MAX_LEVELS} levels, got {n}")
@@ -97,15 +92,29 @@ def fast_score_maps_levels(level_imgs, thr_hi: float, thr_lo: float):
     flat = torch.cat([im.reshape(-1) for im in level_imgs])
     hi = torch.empty_like(flat)
     lo = torch.empty_like(flat)
-    fn = kernels.library("fast")
-    kernels.check(fn(flat.data_ptr(), hi.data_ptr(), lo.data_ptr(), table,
-                     float(thr_hi), float(thr_lo), kernels.stream_ptr(dev)),
-                  "fast_score_maps_levels")
-    kernels.LAUNCHES["fast_score_maps"] += 1
+    args = (flat.data_ptr(), hi.data_ptr(), lo.data_ptr(), table, float(thr_hi), float(thr_lo),
+            kernels.stream_ptr(dev))
     out = []
     for l, im in enumerate(level_imgs):
         o, sz = table.offset[l], im.numel()
         out.append((hi[o:o + sz].view(im.shape), lo[o:o + sz].view(im.shape)))
+    return args, out, [flat, hi, lo]
+
+
+def fast_score_maps_levels(level_imgs, thr_hi: float, thr_lo: float):
+    """Both score maps of every pyramid level: [(hi, lo), ...].
+
+    CPU tensors take the plain version level by level; CUDA tensors take
+    kernel K1, one launch over all levels (each level's 3-px frame zeroed
+    in the kernel).  Any other device raises."""
+    dev = level_imgs[0].device
+    if dev.type == "cpu":
+        return [tuple(fast_score_maps(im, [thr_hi, thr_lo])) for im in level_imgs]
+    if dev.type != "cuda":
+        raise RuntimeError(f"fast_score_maps_levels: unsupported device {dev}")
+    args, out, _keep = kernel_args(level_imgs, thr_hi, thr_lo)
+    kernels.check(kernels.library("fast")(*args), "fast_score_maps_levels")
+    kernels.LAUNCHES["fast_score_maps"] += 1
     return out
 
 

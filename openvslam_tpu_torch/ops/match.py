@@ -1,15 +1,25 @@
 """Projection-gated Hamming matching (counterpart of ``openvslam_tpu/ops/match.py``).
 
 ``projection_scale_match`` is the guided-search matcher of the tracking
-step.  CUDA tensors go to kernel K2 (``csrc/match.cu``); CPU tensors go to
-the plain version, the gate + ``match_descriptors`` composition, which
+step.  CUDA tensors go to kernel K2 (``csrc/match.cu``), which bins the
+keypoints on a grid of square cells and searches, for each visible
+landmark, only the cells around its projection; CPU tensors go to the
+plain version, the gate + ``match_descriptors`` composition, which
 computes the full (L,K) Hamming matrix.  Both give the same ``idx`` and
 ``dist``, ties included: row minima take the lowest keypoint index, the
 cross-check's column minima the lowest landmark row.
 
+The grid's geometry is plain Python here (``bin_grid``), and
+``keypoint_cells`` / ``row_boxes`` repeat the kernel's float32 arithmetic
+for its cell of a keypoint and its box of cells around a row, so the CPU
+tests can check that the box holds every keypoint the exact gate passes.
+
 Descriptors are packed (N,8) int32 words (see ``ops/orb.py``).
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -91,27 +101,71 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def projection_scale_match(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level,
-                           b_xy, b_level, b_valid,
-                           max_dist: int = HAMMING_DIST_THR_HIGH,
-                           ratio=None, cross_check: bool = True):
-    """Projection-radius + octave gated matcher: landmarks a (L rows) against
-    keypoints b (K columns).
+MATCH_CELL = 16          # starting side of a grid cell in pixels (a power of two)
+IMAGE_SIZE = (640, 480)  # grid extent (cols, rows) when the caller gives none
+MAX_CELLS = 8192         # must match csrc/match.cu
+_SLACK = 2.0 ** -20      # relative widening of a row's box, for rounding
 
-    a_desc_u32 (L,8) / b_desc_u32 (K,8) packed int32; uv (L,2) projected
-    landmarks, vis (L,) bool (already ANDed with landmark validity), radius
-    (L,) f32, pred_level (L,) int (< 0 disables the octave gate for the row);
-    b_xy (K,2), b_level (K,), b_valid (K,) bool.
-    Returns (idx_b (L,) int32 [-1 unmatched], dist (L,) int32 [LARGE]).
 
-    CPU tensors take the plain version; CUDA tensors launch kernel K2."""
+class BinGrid(NamedTuple):
+    cell: int   # side of a square cell in pixels, a power of two
+    gw: int     # cells across
+    gh: int     # cells down
+
+
+def bin_grid(cols, rows, cell: int = MATCH_CELL) -> BinGrid:
+    """Grid of square cells over [0, cols) x [0, rows); the side doubles
+    until there are at most MAX_CELLS cells.  Coordinates outside the grid
+    fall into its border cells, so any grid gives exact results; the image
+    size only decides how few keypoints a row visits."""
+    cols, rows = max(float(cols), 1.0), max(float(rows), 1.0)
+    while math.ceil(cols / cell) * math.ceil(rows / cell) > MAX_CELLS:
+        cell *= 2
+    return BinGrid(cell, math.ceil(cols / cell), math.ceil(rows / cell))
+
+
+def _grid_coord(x: torch.Tensor, cell: int, n: int) -> torch.Tensor:
+    """floor(x / cell) clamped to [0, n) in float32, NaN to 0: the kernel's
+    grid_coord (1 / cell is exact for a power of two)."""
+    f = torch.floor(x.to(torch.float32) * (1.0 / cell))
+    f = torch.nan_to_num(f, nan=0.0, posinf=float(n - 1), neginf=0.0)
+    return torch.clamp(f, 0.0, float(n - 1)).to(torch.int64)
+
+
+def keypoint_cells(xy: torch.Tensor, grid: BinGrid):
+    """(cx, cy) of each keypoint's cell, as the bin kernel computes them."""
+    return _grid_coord(xy[:, 0], grid.cell, grid.gw), _grid_coord(xy[:, 1], grid.cell, grid.gh)
+
+
+def row_boxes(uv: torch.Tensor, radius: torch.Tensor, grid: BinGrid):
+    """(x0, x1, y0, y1), inclusive cell ranges that the row kernel walks for
+    each landmark: the disc's bounding box widened by one cell and 2^-20 of
+    |uv| + |r| (more than the float32 rounding of the gate), clamped."""
+    f32 = torch.float32
+    ar = torch.abs(radius.to(f32))
+    cell = torch.tensor(float(grid.cell), dtype=f32)
+    out = []
+    for c, n in ((uv[:, 0].to(f32), grid.gw), (uv[:, 1].to(f32), grid.gh)):
+        pad = ar + (cell + (torch.abs(c) + ar) * _SLACK)
+        out += [_grid_coord(c - pad, grid.cell, n), _grid_coord(c + pad, grid.cell, n)]
+    return out[0], out[1], out[2], out[3]
+
+
+def scratch_size(L: int, K: int, grid: BinGrid) -> int:
+    """int32 words of K2's scratch: cell starts, binned keypoints, row best
+    and second, column minima."""
+    return grid.gw * grid.gh + 1 + 2 * K + 2 * L
+
+
+def kernel_args(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_level, b_valid,
+                max_dist: int = HAMMING_DIST_THR_HIGH, ratio=None, cross_check: bool = True,
+                image_size=IMAGE_SIZE):
+    """Check the operands of one K2 launch and allocate its outputs and
+    scratch.  Returns (ctypes arguments of ``projection_match`` in
+    csrc/match.cu, (idx, dist), tensors to keep alive); the arguments hold
+    pointers into the operands, the scratch and the outputs, which must
+    outlive the launch."""
     dev = a_desc_u32.device
-    if dev.type == "cpu":
-        return projection_scale_match_plain(
-            a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_level, b_valid,
-            max_dist=max_dist, ratio=ratio, cross_check=cross_check)
-    if dev.type != "cuda":
-        raise RuntimeError(f"projection_scale_match: unsupported device {dev}")
     L, K = a_desc_u32.shape[0], b_desc_u32.shape[0]
     if K < 2:
         raise ValueError("projection_scale_match needs at least two keypoints")
@@ -122,34 +176,63 @@ def projection_scale_match(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level,
         raise ValueError(f"too many landmarks/keypoints for packed minima: L={L}, K={K}")
     i32, f32 = torch.int32, torch.float32
 
-    def arg(t, dtype, shape):
-        t = t.to(device=dev, dtype=dtype).contiguous()
-        if tuple(t.shape) != shape:
+    def arg(t, dtypes, shape):
+        # copies only what the kernel cannot read as it is
+        if t.dtype not in dtypes or t.device != dev or not t.is_contiguous():
+            t = t.to(device=dev, dtype=t.dtype if t.dtype in dtypes else dtypes[0]).contiguous()
+        if t.shape != shape:
             raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
         return t
 
-    a_desc = arg(a_desc_u32, i32, (L, 8))
-    b_desc = arg(b_desc_u32, i32, (K, 8))
-    a_uv = arg(uv, f32, (L, 2))
-    a_vis = arg(vis, torch.bool, (L,))
-    r = arg(radius, f32, (L,))
-    a_r2 = r * r
-    a_pred = arg(pred_level, i32, (L,))
-    bxy = arg(b_xy, f32, (K, 2))
-    blvl = arg(b_level, i32, (K,))
-    bval = arg(b_valid, torch.bool, (K,))
-    row_best = torch.empty(L, dtype=i32, device=dev)
-    row_second = torch.empty(L, dtype=i32, device=dev)
-    col_min = torch.full((K,), torch.iinfo(i32).max, dtype=i32, device=dev)
-    idx = torch.empty(L, dtype=i32, device=dev)
-    dist = torch.empty(L, dtype=i32, device=dev)
-    fn = kernels.library("match")
-    kernels.check(fn(a_desc.data_ptr(), b_desc.data_ptr(), a_uv.data_ptr(), a_vis.data_ptr(),
-                     a_r2.data_ptr(), a_pred.data_ptr(), bxy.data_ptr(), blvl.data_ptr(),
-                     bval.data_ptr(), L, K, col_mul, row_mul, int(max_dist),
-                     -1.0 if ratio is None else float(ratio), int(bool(cross_check)),
-                     row_best.data_ptr(), row_second.data_ptr(), col_min.data_ptr(),
-                     idx.data_ptr(), dist.data_ptr(), kernels.stream_ptr(dev)),
-                  "projection_scale_match")
+    levels = (torch.int64, i32)
+    keep = [arg(a_desc_u32, (i32,), (L, 8)), arg(b_desc_u32, (i32,), (K, 8)),
+            arg(uv, (f32,), (L, 2)), arg(vis, (torch.bool,), (L,)), arg(radius, (f32,), (L,)),
+            arg(pred_level, levels, (L,)), arg(b_xy, (f32,), (K, 2)),
+            arg(b_level, levels, (K,)), arg(b_valid, (torch.bool,), (K,))]
+    a_desc, b_desc, a_uv, a_vis, a_r, a_pred, bxy, blvl, bval = keep
+    if b_desc.data_ptr() % 16:
+        raise ValueError("projection_scale_match: b_desc must be 16-byte aligned")
+    grid = bin_grid(*image_size)
+    # one allocation: the scratch, then idx and dist
+    n_scratch = scratch_size(L, K, grid)
+    buf = torch.empty(n_scratch + 2 * L, dtype=i32, device=dev)
+    base = buf.data_ptr()
+    args = (a_desc.data_ptr(), b_desc.data_ptr(), a_uv.data_ptr(), a_vis.data_ptr(),
+            a_r.data_ptr(), a_pred.data_ptr(), int(a_pred.dtype == torch.int64),
+            bxy.data_ptr(), blvl.data_ptr(), int(blvl.dtype == torch.int64), bval.data_ptr(),
+            L, K, float(grid.cell), grid.gw, grid.gh, col_mul, row_mul, int(max_dist),
+            -1.0 if ratio is None else float(ratio), int(bool(cross_check)),
+            base, base + 4 * n_scratch, base + 4 * (n_scratch + L), kernels.stream_ptr(dev))
+    out = buf[n_scratch:].view(2, L)
+    return args, (out[0], out[1]), keep + [buf]
+
+
+def projection_scale_match(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level,
+                           b_xy, b_level, b_valid,
+                           max_dist: int = HAMMING_DIST_THR_HIGH,
+                           ratio=None, cross_check: bool = True, image_size=IMAGE_SIZE):
+    """Projection-radius + octave gated matcher: landmarks a (L rows) against
+    keypoints b (K columns).
+
+    a_desc_u32 (L,8) / b_desc_u32 (K,8) packed int32; uv (L,2) projected
+    landmarks, vis (L,) bool (already ANDed with landmark validity), radius
+    (L,) f32, pred_level (L,) int (< 0 disables the octave gate for the row);
+    b_xy (K,2), b_level (K,), b_valid (K,) bool.  ``image_size`` (cols,
+    rows) sets the extent of the kernel's keypoint grid: any extent gives
+    the same result, the camera's keeps each row's search short.
+    Returns (idx_b (L,) int32 [-1 unmatched], dist (L,) int32 [LARGE]).
+
+    CPU tensors take the plain version; CUDA tensors launch kernel K2."""
+    dev = a_desc_u32.device
+    if dev.type == "cpu":
+        return projection_scale_match_plain(
+            a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_level, b_valid,
+            max_dist=max_dist, ratio=ratio, cross_check=cross_check)
+    if dev.type != "cuda":
+        raise RuntimeError(f"projection_scale_match: unsupported device {dev}")
+    args, out, _keep = kernel_args(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy,
+                                   b_level, b_valid, max_dist=max_dist, ratio=ratio,
+                                   cross_check=cross_check, image_size=image_size)
+    kernels.check(kernels.library("match")(*args), "projection_scale_match")
     kernels.LAUNCHES["projection_match"] += 1
-    return idx, dist
+    return out

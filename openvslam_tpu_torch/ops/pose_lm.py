@@ -2,17 +2,22 @@
 (counterpart of ``openvslam_tpu/ops/pallas/pose_lm_kernel.py``).
 
 CUDA tensors go to kernel K3 (``csrc/pose_lm.cu``): one thread block per
-pose problem, every iteration inside the kernel.  CPU tensors go to the
-plain version below, ``_lm_schedule``, which is the JAX kernel body
+pose problem, every iteration inside the kernel, one pass and one block
+reduction per iteration, the observations held in registers up to 4096
+mono / 3072 stereo rows and read from device memory on each pass above.  The kernel
+reads the caller's tensors as they are (2- or 3-column observations,
+sigma2, a bool mask) and writes the 4x4 pose, the inlier mask and count
+and chi2 itself, so a call is one launch.  CPU tensors go to the plain
+version below, ``_lm_schedule``, which is the JAX kernel body
 (``pose_lm_xla_reference``) written out in PyTorch: analytic Jacobians of
 the left increment, Huber at ``chi2_thr``, the 8x8 augmented normal matrix,
 a damped 6x6 Cholesky, the SE(3) exp, accept only when the cost drops and
 the pose is finite, lambda 1e-3 halved on accept and quadrupled on reject
 (clipped to [1e-9, 1e6]), inliers reclassified between rounds.
 
-Observations are (u, v, u_right) with u_right < 0 for a mono observation.
-The kernel sums in another order than the plain version, so the two agree
-to float32 rounding over 40 iterations, not bit for bit.
+Observations are (u, v) or (u, v, u_right) with u_right < 0 for a mono
+observation.  The kernel sums in another order than the plain version, so
+the two agree to float32 rounding over 40 iterations, not bit for bit.
 """
 from __future__ import annotations
 
@@ -162,6 +167,8 @@ def _lm_schedule(X0, X1, X2, ou, ov, our, inv_s2, mask_f, T0,
 
 
 def _operands(T_init, X_w, obs_uvr, sigma2, mask):
+    """The plain version's operands: float32, a -1 u_right column for 2-column
+    observations, 1 / max(sigma2, 1e-12) and a float mask."""
     f32 = torch.float32
     N = X_w.shape[0]
     dev = X_w.device
@@ -192,31 +199,49 @@ def pose_lm_plain(T_init, X_w, obs_uvr, sigma2, mask, *, fx, fy, cx, cy, fxb,
     return _result(torch.stack(T), active, c2)
 
 
+def kernel_args(T_init, X_w, obs_uvr, sigma2, mask, *, fx, fy, cx, cy, fxb, chi2_thr,
+                num_rounds=4, iters_per_round=10):
+    """Check the operands of one K3 launch and allocate its outputs.  Returns
+    (ctypes arguments of ``pose_lm`` in csrc/pose_lm.cu, (T_cw, inliers,
+    num_inliers, chi2), tensors to keep alive); the arguments hold pointers
+    into the given tensors and the outputs, which must outlive the launch."""
+    dev = X_w.device
+    N = X_w.shape[0]
+    f32 = torch.float32
+    ok = (T_init.shape == (4, 4) and X_w.shape == (N, 3) and obs_uvr.ndim == 2
+          and obs_uvr.shape[0] == N and obs_uvr.shape[1] in (2, 3)
+          and sigma2.shape == (N,) and mask.shape == (N,))
+    if not ok:
+        raise ValueError("pose_lm: expected T (4,4), X (N,3), obs (N,2|3), sigma2 (N,), mask (N,)")
+    for name, t, dt in (("T_init", T_init, f32), ("X_w", X_w, f32), ("obs", obs_uvr, f32),
+                        ("sigma2", sigma2, f32), ("mask", mask, torch.bool)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"pose_lm: {name} must be a contiguous {dt} tensor on {dev}")
+    T = torch.empty((4, 4), dtype=f32, device=dev)
+    c2 = torch.empty(N, dtype=f32, device=dev)
+    inl = torch.empty(N, dtype=torch.bool, device=dev)
+    n = torch.empty((), dtype=torch.int64, device=dev)
+    args = (T_init.data_ptr(), X_w.data_ptr(), obs_uvr.data_ptr(), obs_uvr.shape[1],
+            sigma2.data_ptr(), mask.data_ptr(), N, float(fx), float(fy), float(cx),
+            float(cy), float(fxb), float(chi2_thr), int(num_rounds), int(iters_per_round),
+            T.data_ptr(), c2.data_ptr(), inl.data_ptr(), n.data_ptr(), kernels.stream_ptr(dev))
+    return args, (T, inl, n, c2), [T_init, X_w, obs_uvr, sigma2, mask]
+
+
 def pose_lm(T_init, X_w, obs_uvr, sigma2, mask, *, fx, fy, cx, cy, fxb,
             chi2_thr, num_rounds=4, iters_per_round=10):
     """Fused pose-only LM.  T_init (4,4), X_w (N,3), obs_uvr (N,2|3),
     sigma2 (N,), mask (N,) bool.  CPU tensors take the plain version, CUDA
-    tensors launch kernel K3.  Returns (T_cw, inliers, num_inliers, chi2)."""
+    tensors launch kernel K3 (float32 contiguous operands, any N).
+    Returns (T_cw, inliers, num_inliers, chi2)."""
     dev = X_w.device
+    kw = dict(fx=fx, fy=fy, cx=cx, cy=cy, fxb=fxb, chi2_thr=chi2_thr,
+              num_rounds=num_rounds, iters_per_round=iters_per_round)
     if dev.type == "cpu":
-        return pose_lm_plain(T_init, X_w, obs_uvr, sigma2, mask, fx=fx, fy=fy, cx=cx,
-                             cy=cy, fxb=fxb, chi2_thr=chi2_thr, num_rounds=num_rounds,
-                             iters_per_round=iters_per_round)
+        return pose_lm_plain(T_init, X_w, obs_uvr, sigma2, mask, **kw)
     if dev.type != "cuda":
         raise RuntimeError(f"pose_lm: unsupported device {dev}")
-    N = X_w.shape[0]
-    T12, X, obs, inv_s2, mask_f = (t.contiguous() for t in
-                                   _operands(T_init.to(dev), X_w, obs_uvr, sigma2, mask))
-    if X.shape != (N, 3) or obs.shape != (N, 3) or inv_s2.shape != (N,) or mask_f.shape != (N,):
-        raise ValueError("pose_lm: inconsistent observation shapes")
-    T_out = torch.empty(12, dtype=torch.float32, device=dev)
-    c2 = torch.empty(N, dtype=torch.float32, device=dev)
-    active = torch.empty(N, dtype=torch.float32, device=dev)
-    fn = kernels.library("pose_lm")
-    kernels.check(fn(T12.data_ptr(), X.data_ptr(), obs.data_ptr(), inv_s2.data_ptr(),
-                     mask_f.data_ptr(), 1, N, float(fx), float(fy), float(cx), float(cy),
-                     float(fxb), float(chi2_thr), int(num_rounds), int(iters_per_round),
-                     T_out.data_ptr(), c2.data_ptr(), active.data_ptr(),
-                     kernels.stream_ptr(dev)), "pose_lm")
+    args, out, _keep = kernel_args(T_init, X_w, obs_uvr, sigma2, mask, **kw)
+    kernels.check(kernels.library("pose_lm")(*args), "pose_lm")
     kernels.LAUNCHES["pose_lm"] += 1
-    return _result(T_out, active, c2)
+    return out

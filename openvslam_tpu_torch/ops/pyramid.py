@@ -7,21 +7,21 @@ scale-and-translate of ``jax.image.resize``.
 ``torch.nn.functional.interpolate(..., antialias=True)`` is a different
 filter and lands on other integers, so the resize is rebuilt from the JAX
 definition: the same triangle kernel widened by the inverse scale, the same
-per-column weight normalisation, rows contracted before columns.  Two more
-details decide the last ulp, and so the integer a near-half value rounds
-to, and both follow what XLA:CPU compiles:
+per-column weight normalisation, rows contracted before columns.  The
+sample position ``(i + 0.5) * inv_scale - 0.5`` is one fused multiply-add
+and the division by the kernel scale a reciprocal multiply (weights, in
+numpy at construction time), as XLA:CPU compiles them.  Each output is a
+chain of fused multiply-adds over its taps in ascending input order; a
+fused multiply-add of float32 operands is emulated exactly in float64 (the
+product is exact there) and rounded once, so the CPU and the GPU give the
+same bits.
 
-* the sample position ``(i + 0.5) * inv_scale - 0.5`` is one fused
-  multiply-add, and the division by the kernel scale is a reciprocal
-  multiply (weights, in numpy at construction time);
-* each output is a chain of fused multiply-adds over its taps in
-  ascending input order, the order of a dense f32 matmul's inner loop.
-  A fused multiply-add of float32 operands is emulated exactly in float64
-  (the product is exact there) and rounded once, so the CPU and the GPU
-  give the same bits.
-
-The result matches the JAX levels on most images; the residue that is
-left (a few pixels of 950k at 640x480) is stated by the tests.
+That order is one choice, not XLA's: the reference's own floats depend on
+how XLA:CPU lays out its dot (resizing the transposed image and
+transposing back changes about a quarter of the pre-round values, see
+tests/test_torch_frontend.py test_reference_resize_depends_on_layout), so
+no fixed order reproduces them.  The levels match JAX's except at a few
+near-half values (a few pixels of 950k at 640x480), stated by the tests.
 """
 from __future__ import annotations
 

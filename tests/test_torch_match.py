@@ -84,3 +84,45 @@ def test_match_all_gated_out(rng):
     idx_j, _ = _jax_xla(prob)
     assert (np.asarray(idx_j) == -1).all()
 
+
+@pytest.mark.parametrize("seed", range(6))
+def test_bin_boxes_hold_every_gated_pair(seed):
+    """K2's search is exact only if the cells a row walks hold every keypoint
+    that the exact gate passes.  Random rows and keypoints inside and far
+    outside the image, radii 0.1-800 px (log-uniform), three cell sides:
+    every pair of projection_gate (float32, as the plain version gates)
+    lies in the row's box of row_boxes, with the keypoint's cell from
+    keypoint_cells, the same float32 arithmetic as csrc/match.cu."""
+    rng = np.random.default_rng(100 + seed)
+    L, K = 400, 500
+    uv = rng.uniform([-120, -120], [760, 600], (L, 2)).astype(np.float32)
+    xy = rng.uniform([-300, -300], [940, 780], (K, 2)).astype(np.float32)
+    xy[: K // 5] = uv[: K // 5] + rng.normal(0, 30, (K // 5, 2))   # near a row
+    xy[K // 5: K // 4] *= 40.0                                      # far outside
+    radius = np.exp(rng.uniform(np.log(0.1), np.log(800.0), L)).astype(np.float32)
+    radius[::7] = -radius[::7]                                      # r^2 is what gates
+    uv_t, xy_t, r_t = (torch.from_numpy(a) for a in (uv, xy, radius))
+    gate = M.projection_gate(uv_t, torch.ones(L, dtype=torch.bool), xy_t, r_t)
+    assert int(gate.sum()) > 2000
+    for cell in (8, 16, 64):
+        grid = M.bin_grid(640, 480, cell)
+        assert grid.gw * grid.gh <= M.MAX_CELLS and grid.gw * cell >= 640
+        cx, cy = M.keypoint_cells(xy_t, grid)
+        x0, x1, y0, y1 = M.row_boxes(uv_t, r_t, grid)
+        inside = ((cx[None, :] >= x0[:, None]) & (cx[None, :] <= x1[:, None])
+                  & (cy[None, :] >= y0[:, None]) & (cy[None, :] <= y1[:, None]))
+        assert bool((inside | ~gate).all()), int((gate & ~inside).sum())
+        # the boxes are tight: a small radius visits a few cells, not the grid
+        small = np.abs(radius) < 10
+        width = (x1 - x0 + 1) * (y1 - y0 + 1)
+        assert int(width[torch.from_numpy(small)].max()) <= (2 * 10 // cell + 4) ** 2
+
+
+def test_bin_grid_geometry():
+    assert M.bin_grid(640, 480) == M.BinGrid(16, 40, 30)
+    g = M.bin_grid(1e5, 1e5)                     # the side doubles up to MAX_CELLS
+    assert g.gw * g.gh <= M.MAX_CELLS and g.cell & (g.cell - 1) == 0
+    assert M.bin_grid(0, 0) == M.BinGrid(16, 1, 1)
+    big = torch.tensor([[float("nan"), float("inf")], [-1e30, 5.0], [639.9, 479.9]])
+    cx, cy = M.keypoint_cells(big, M.bin_grid(640, 480))
+    assert cx.tolist() == [0, 0, 39] and cy.tolist() == [29, 0, 29]

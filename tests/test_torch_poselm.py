@@ -117,6 +117,33 @@ def test_pose_optimizer_matches_jax_autodiff_core(rng, stereo):
     assert JR.CHI2_2D == R.CHI2_2D and JR.CHI2_3D == R.CHI2_3D
 
 
+def test_two_and_three_column_observations_agree(rng):
+    """2-column (u, v) observations take the mono path: the same result as
+    3-column observations with u_right = -1 (K3's operand handling; on the
+    card test_torch_kernels holds the kernel to the same)."""
+    T_gt, T0, pts, obs, sig, mask = _problem(rng, n=150, mask_off=20, behind=5)
+    kw = _params(False)
+    two = pose_lm.pose_lm(*_port(T0, pts, np.ascontiguousarray(obs[:, :2]), sig, mask), **kw)
+    three = pose_lm.pose_lm(*_port(T0, pts, obs, sig, mask), **kw)
+    for a, b in zip(two, three):
+        assert torch.equal(a, b)
+    assert 80 < int(two[2]) < 130            # 20 masked, 5 behind, 40 outliers
+
+
+def test_kernel_operand_checks():
+    """K3's wrapper takes the caller's tensors as they are and refuses what
+    the kernel does not read, whatever N (the kernel takes any N)."""
+    kw = _params(False)
+    for n in (8, 5000, 20000):
+        good = [torch.eye(4), torch.zeros(n, 3), torch.zeros(n, 2), torch.ones(n),
+                torch.ones(n, dtype=torch.bool)]
+        for i, bad in ((2, torch.zeros(n, 2, dtype=torch.float64)), (4, torch.ones(n)),
+                       (2, torch.zeros(n, 4)), (1, torch.zeros(3, n).T), (3, torch.ones(n + 1))):
+            args = list(good)
+            args[i] = bad
+            with pytest.raises(ValueError):
+                pose_lm.kernel_args(*args, **kw)
+
 
 def test_residual_helpers_match_jax(rng):
     """The mono edge, Huber weight and left increment against the JAX
