@@ -6,12 +6,14 @@
 Phases:
   1. the card (nvidia-smi name and power limit) and the kernels' build;
   2. every hand-written kernel held against its plain PyTorch version on the
-     card at the shapes of the main path, on a rendered 640x480 frame (K2
-     also on adversarial inputs), with its time (CUDA events) through its
-     wrapper and of its C entry alone, the plain version's time and its
-     bound; K2 and K3 at both main-path shapes;
+     card at the shapes of the main path, on a rendered 640x480 frame (K1
+     also with a mask, its selection too; K2 also on adversarial inputs),
+     with its time (CUDA events) through its wrapper and of its C entry
+     alone, the plain version's time and its bound; K2 and K3 at both
+     main-path shapes;
   3. FrameStep at bench.py's kernel working point (640x480, 1024 keypoints,
-     8 levels, 4096-landmark local map) over a 40-frame rendered orbit;
+     8 levels, 4096-landmark local map) over a 40-frame rendered orbit,
+     with profiles of the step and of its extract alone;
   4. the mono TrackStep at System's working point (1000 keypoints, 4096
      local landmarks), the previous frame's matches as the last-frame table,
      with its first frames re-run on the CPU through the plain versions.
@@ -198,31 +200,56 @@ def main() -> int:
     report = {}
     c_fast, c_match, c_lm = (kernels.library(n) for n in ("fast", "match", "pose_lm"))
 
-    # K1 on all 8 levels of frame 1
+    # K1 on all 8 levels of frame 1 at FrameStep's budgets, without and with
+    # a random mask: the pools and the selection after them against the
+    # plain composition
     levels = pyramid.build_pyramid(imgs_d[1].to(torch.float32), 8, 1.2)
-    k_maps = fast.fast_score_maps_levels(levels, 20.0, 7.0)
-    p_maps = [fast.fast_score_maps(im, [20.0, 7.0]) for im in levels]
-    torch.cuda.synchronize()
-    err1 = max(float((a - b).abs().max()) for kl, pl in zip(k_maps, p_maps) for a, b in zip(kl, pl))
-    exact1 = all(torch.equal(a, b) for kl, pl in zip(k_maps, p_maps) for a, b in zip(kl, pl))
+    shapes = [tuple(im.shape) for im in levels]
+    budgets = fs.frontend.budgets
+    keep_px = torch.from_numpy(np.random.default_rng(3).random((480, 640)) > 0.3).to(dev)
+    masks1 = [pyramid.resize_nearest(keep_px.to(torch.float32), s) for s in shapes]
+    exact1, err1 = True, 0.0
+    for tag, ms in (("no mask", None), ("mask", masks1)):
+        vk, ik = fast.fast_cell_pools(levels, 20.0, 7.0, budgets, masks=ms)
+        vp, ip = fast.fast_cell_pools_plain(levels, 20.0, 7.0, budgets, masks=ms)
+        dk = fast.detect_levels(levels, 20.0, 7.0, budgets, masks=ms)
+        dp = fast.select_from_pools(vp, ip, shapes, budgets)
+        same_pools = torch.equal(vk, vp) and torch.equal(ik, ip)
+        same_kp = all(torch.equal(a, b) for x, y in zip(dk, dp) for a, b in zip(x, y))
+        exact1 &= same_pools and same_kp
+        err1 = max(err1, float(torch.where(vk == vp, 0.0, (vk - vp).abs()).max()),
+                   float((ik - ip).abs().max()))
+        log(f"K1 {tag}: pools exact {same_pools}, detect_levels exact {same_kp}; "
+            f"{int((vk > 0).sum())} corners in the pools, {int(dk[0][2].sum())} kept on level 0")
     px = sum(im.numel() for im in levels)
-    ms1, lo1, hi1 = cuda_ms(lambda: fast.fast_score_maps_levels(levels, 20.0, 7.0), 200)
-    args1, _, keep1 = fast.kernel_args(levels, 20.0, 7.0)
+    ms1, lo1, hi1 = cuda_ms(lambda: fast.fast_cell_pools(levels, 20.0, 7.0, budgets), 200)
+    args1, _, keep1 = fast.kernel_args(levels, 20.0, 7.0, budgets)
     ko1 = cuda_ms(lambda: c_fast(*args1), 200)[0]
-    pms1 = cuda_ms(lambda: [fast.fast_score_maps(im, [20.0, 7.0]) for im in levels], 10,
+    pms1 = cuda_ms(lambda: fast.fast_cell_pools_plain(levels, 20.0, 7.0, budgets), 10,
                    repeats=1)[0]
-    # least ops per pixel (the prefix-sum formulation of ops/fast.py): 16 ring
-    # differences; per threshold and polarity 16 subtract + 16 clamp, 24 + 24
-    # prefix adds (sums and pass counts, with 24 compares), 16 windows of
-    # 2 subtracts + compare + select, 16 maxima
-    b1, by1 = bound(px * (16 + 2 * 2 * (32 + 72 + 64 + 16)), H100_F32_OPS_PER_S, px * 4 * 3)
+    # least work of the fused stage on this frame: per pixel 100 operations
+    # for the lower-threshold pass masks (16 differences, 32 compares, 32 bit
+    # inserts, two 10-operation 9-run tests), 8 NMS compares and 2 for the
+    # preference; per pixel with a lower-threshold arc 160 (16 sliding arc
+    # sums, per threshold and polarity 16 compares and 16 maxima); per cell
+    # k_cell rounds of a 1024-wide maximum.  Bytes: every level read once,
+    # the pools written once
+    arc_px = sum(int((fast.fast_score_maps(im, [7.0])[0] > 0).sum()) for im in levels)
+    geo1 = fast.pool_geometry(tuple(shapes), tuple(budgets), 32)
+    topk_ops = sum(n * k * 1024 for n, k in zip(geo1.cells, geo1.k_cell))
+    b1, by1 = bound(px * 110 + arc_px * 160 + topk_ops, H100_F32_OPS_PER_S,
+                    px * 4 + len(levels) * geo1.vmax * (4 + 8))
     report["fast_score_maps"] = dict(
-        name="fast_score_maps", route="cuda", source="openvslam_tpu_torch/csrc/fast.cu",
+        name="fast_cell_pools", route="cuda", source="openvslam_tpu_torch/csrc/fast.cu",
         replaces="openvslam_tpu/ops/pallas/fast_kernel.py:102", max_abs_err=err1,
         ms=ms1, ms_kernel_only=ko1, plain_ms=pms1, bound_ms=b1, bound_by=by1,
-        library_ms=None, check=f"bit-exact on {len(levels)} levels ({px} px): {exact1}")
-    log(f"K1 fast_score_maps: {px} px, exact={exact1}, max_abs_err={err1}, "
-        f"{ms1:.4f} ms [{lo1:.4f}, {hi1:.4f}], kernel alone {ko1:.4f} ms (plain {pms1:.3f} ms)")
+        library_ms=None, arc_pixels=arc_px, pixels=px,
+        check=f"pools and detect_levels bit-exact on {len(levels)} levels ({px} px), "
+              f"without and with a mask: {exact1}")
+    log(f"K1 fast_cell_pools: {px} px, {arc_px} with a lower-threshold arc, {len(levels)} x "
+        f"{geo1.vmax} pools; exact={exact1}, max_abs_err={err1}; {ms1:.4f} ms [{lo1:.4f}, "
+        f"{hi1:.4f}] through the wrapper, {ko1:.4f} ms kernel alone (plain {pms1:.3f} ms; "
+        f"bound {b1:.6f} ms {by1})")
     if not exact1:
         fail("K1 differs from its plain version")
 
@@ -396,6 +423,10 @@ def main() -> int:
     extract_ms = (time.perf_counter() - t) / (reps * (n_frames - 1)) * 1e3
     fs_prof = profile_summary(profile_window(lambda i: fs_step(i, poses_d[i - 1]), range(1, 11)),
                               10, 1e3 / fs_fps)
+    ex_prof = profile_summary(profile_window(lambda i: fs.frontend.extract(imgs_d[i]),
+                                             range(1, 11)), 10, extract_ms)
+    log(f"extract profile: {ex_prof['kernels_per_frame']:.0f} kernels/frame, device busy "
+        f"{ex_prof['device_busy_ms_per_frame']:.3f} ms/frame of {extract_ms:.2f} ms")
     log(f"FrameStep profile: extract alone {extract_ms:.2f} ms of {1e3 / fs_fps:.2f} ms/frame; "
         f"device busy {fs_prof['device_busy_ms_per_frame']:.3f} ms/frame over "
         f"{fs_prof['kernels_per_frame']:.0f} kernels; idle share {fs_prof['device_idle_share']}")
@@ -537,7 +568,8 @@ def main() -> int:
             f"kernel alone) vs plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.6f} ms "
             f"({r['bound_by']})")
     print(json.dumps({"profile": {"framestep": fs_prof, "trackstep": ts_prof,
-                                  "framestep_extract_ms": extract_ms}}), flush=True)
+                                  "framestep_extract_ms": extract_ms, "extract": ex_prof}}),
+          flush=True)
     summary = dict(framestep_fps=fs_fps, framestep_inliers_median=float(np.median(inl)),
                    framestep_terr_median_m=float(np.median(terr)),
                    trackstep_fps=ts_fps, trackstep_inliers_median=float(np.median(inl2)),

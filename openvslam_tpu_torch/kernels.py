@@ -29,6 +29,7 @@ SOURCES = {"fast": "fast.cu", "match": "match.cu", "pose_lm": "pose_lm.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# K1 (now the fused detect kernel) keeps its first key, so launch records line up
 LAUNCHES = {"fast_score_maps": 0, "projection_match": 0, "pose_lm": 0}
 
 _P = ctypes.c_void_p
@@ -38,14 +39,17 @@ MAX_LEVELS = 16
 
 
 class LevelTable(ctypes.Structure):
-    """Per-level geometry of the all-levels FAST launch, passed by value."""
-    _fields_ = [("num_levels", _I), ("offset", _I * MAX_LEVELS),
+    """Per-level geometry and operands of the all-levels K1 launch, passed by
+    value (``struct LevelTable`` in csrc/fast.cu)."""
+    _fields_ = [("num_levels", _I), ("vmax", _I),
                 ("height", _I * MAX_LEVELS), ("width", _I * MAX_LEVELS),
-                ("tiles_x", _I * MAX_LEVELS), ("tile_start", _I * (MAX_LEVELS + 1))]
+                ("cells_x", _I * MAX_LEVELS), ("k_cell", _I * MAX_LEVELS),
+                ("cell_start", _I * (MAX_LEVELS + 1)),
+                ("img", _P * MAX_LEVELS), ("mask", _P * MAX_LEVELS)]
 
 
 _SIGNATURES = {
-    "fast": ("fast_score_maps_levels", [_P, _P, _P, LevelTable, _F, _F, _P]),
+    "fast": ("fast_cell_pools", [LevelTable, _F, _F, _P, _P, _P]),
     "match": ("projection_match", [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
                                    _I, _I, _F, _I, _I, _I, _I, _I, _F, _I,
                                    _P, _P, _P, _P]),

@@ -1,15 +1,22 @@
 """FAST-9/16 corner detection + NMS + grid top-k selection (counterpart of
 ``openvslam_tpu/ops/fast.py``).
 
-The score maps come from kernel K1 (``csrc/fast.cu``) on the GPU, one
-launch over all pyramid levels, and from ``fast_score_maps`` (the plain
-PyTorch version) for CPU tensors.  Selection keeps JAX's tie order: every
-top-k is a max/argmax loop (first occurrence) or a stable descending sort,
-so equal candidates come out lowest index first, as ``lax.top_k`` gives.
+Kernel K1 (``csrc/fast.cu``) runs the whole detection stage of every
+pyramid level in one launch on the GPU: both score maps, the
+two-threshold preference, the 3x3 NMS, the masks and the per-cell top-k,
+writing only the per-cell candidate pools (``fast_cell_pools``).  CPU
+tensors take the plain composition ``fast_cell_pools_plain``
+(``fast_score_maps``, then ``_cell_candidates`` per level).  One stable
+descending sort over all levels' pools then picks each level's keypoints
+(``select_from_pools``).  Tie order is JAX's throughout: every top-k is a
+max/argmax loop (first occurrence), a block maximum over keys that rank
+the lower index higher, or a stable descending sort, so equal candidates
+come out lowest index first, as ``lax.top_k`` gives.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import functools
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,8 +59,8 @@ def _arc_score(diff: torch.Tensor, t: float) -> torch.Tensor:
 
 
 def fast_score_maps(img: torch.Tensor, thresholds) -> List[torch.Tensor]:
-    """Plain version of K1: (H,W) f32 -> per-threshold (H,W) score maps with
-    a zeroed 3-px frame."""
+    """The score maps that open K1's plain version: (H,W) f32 ->
+    per-threshold (H,W) score maps with a zeroed 3-px frame."""
     ring = torch.stack([_shifted(img, dy, dx) for dy, dx in _CIRCLE], -1)
     diff = ring - img[..., None]
     h, w = img.shape
@@ -62,60 +69,6 @@ def fast_score_maps(img: torch.Tensor, thresholds) -> List[torch.Tensor]:
     inside = (yy >= _BORDER) & (yy < h - _BORDER) & (xx >= _BORDER) & (xx < w - _BORDER)
     return [torch.where(inside, _arc_score(diff, float(t)), torch.zeros_like(img))
             for t in thresholds]
-
-
-FAST_TILE_X, FAST_TILE_Y = 32, 8   # must match csrc/fast.cu
-
-
-def kernel_args(level_imgs, thr_hi: float, thr_lo: float):
-    """Lay out the operands of one K1 launch over all levels and allocate
-    its outputs.  Returns (ctypes arguments of ``fast_score_maps_levels`` in
-    csrc/fast.cu, [(hi, lo) per level], tensors to keep alive); the
-    arguments hold pointers that must outlive the launch."""
-    dev = level_imgs[0].device
-    n = len(level_imgs)
-    if n > kernels.MAX_LEVELS:
-        raise ValueError(f"at most {kernels.MAX_LEVELS} levels, got {n}")
-    table = kernels.LevelTable()
-    table.num_levels = n
-    off = tiles = 0
-    for l, im in enumerate(level_imgs):
-        if im.dtype != torch.float32 or im.ndim != 2 or im.device != dev:
-            raise ValueError("levels must be 2-D float32 tensors on one device")
-        h, w = im.shape
-        tx = -(-w // FAST_TILE_X)
-        table.offset[l], table.height[l], table.width[l] = off, h, w
-        table.tiles_x[l], table.tile_start[l] = tx, tiles
-        off += h * w
-        tiles += tx * -(-h // FAST_TILE_Y)
-    table.tile_start[n] = tiles
-    flat = torch.cat([im.reshape(-1) for im in level_imgs])
-    hi = torch.empty_like(flat)
-    lo = torch.empty_like(flat)
-    args = (flat.data_ptr(), hi.data_ptr(), lo.data_ptr(), table, float(thr_hi), float(thr_lo),
-            kernels.stream_ptr(dev))
-    out = []
-    for l, im in enumerate(level_imgs):
-        o, sz = table.offset[l], im.numel()
-        out.append((hi[o:o + sz].view(im.shape), lo[o:o + sz].view(im.shape)))
-    return args, out, [flat, hi, lo]
-
-
-def fast_score_maps_levels(level_imgs, thr_hi: float, thr_lo: float):
-    """Both score maps of every pyramid level: [(hi, lo), ...].
-
-    CPU tensors take the plain version level by level; CUDA tensors take
-    kernel K1, one launch over all levels (each level's 3-px frame zeroed
-    in the kernel).  Any other device raises."""
-    dev = level_imgs[0].device
-    if dev.type == "cpu":
-        return [tuple(fast_score_maps(im, [thr_hi, thr_lo])) for im in level_imgs]
-    if dev.type != "cuda":
-        raise RuntimeError(f"fast_score_maps_levels: unsupported device {dev}")
-    args, out, _keep = kernel_args(level_imgs, thr_hi, thr_lo)
-    kernels.check(kernels.library("fast")(*args), "fast_score_maps_levels")
-    kernels.LAUNCHES["fast_score_maps"] += 1
-    return out
 
 
 def topk_small(x: torch.Tensor, k: int):
@@ -137,9 +90,32 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= mx, score, torch.zeros_like(score))
 
 
+class PoolGeometry(NamedTuple):
+    """Shape-only layout of the candidate pools of a set of levels."""
+    cells_x: Tuple[int, ...]     # gw: cells per row of each level
+    cells: Tuple[int, ...]       # gh * gw
+    k_cell: Tuple[int, ...]      # candidates kept per cell
+    vmax: int                    # pool row length: max of cells * k_cell
+
+
+@functools.lru_cache(maxsize=None)
+def pool_geometry(shapes: Tuple[Tuple[int, int], ...], budgets: Tuple[int, ...],
+                  cell: int) -> PoolGeometry:
+    """Cells and per-cell caps of levels of the given (h, w) shapes and
+    keypoint budgets (the k_cell rule of ``_cell_candidates``)."""
+    gws, cells, ks = [], [], []
+    for (h, w), budget in zip(shapes, budgets):
+        gh, gw = -(-h // cell), -(-w // cell)
+        gws.append(gw)
+        cells.append(gh * gw)
+        ks.append(max(1, min(cell * cell, (budget * 4) // (gh * gw) + 1)))
+    return PoolGeometry(tuple(gws), tuple(cells), tuple(ks),
+                        max(c * k for c, k in zip(cells, ks)))
+
+
 def _cell_candidates(s_hi, s_lo, max_pts: int, cell: int, mask):
-    """Two-threshold preference + NMS + per-cell top-k cap.  Returns
-    (vals (V,), idxs (V,) into the padded (gh,gw,cell,cell) layout, gw)."""
+    """Two-threshold preference + NMS + per-cell top-k cap of one level.
+    Returns (vals (V,), idxs (V,) into the padded (gh,gw,cell,cell) layout)."""
     score = torch.where(s_hi > 0, s_hi + _BONUS, s_lo)
     score = nms3x3(score)
     if mask is not None:
@@ -148,15 +124,117 @@ def _cell_candidates(s_hi, s_lo, max_pts: int, cell: int, mask):
     gh, gw = -(-h // cell), -(-w // cell)
     sp = F.pad(score, (0, gw * cell - w, 0, gh * cell - h))
     cells = sp.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(gh * gw, cell * cell)
-    k_cell = max(1, min(cell * cell, (max_pts * 4) // (gh * gw) + 1))
-    cv, ci = topk_small(cells, k_cell)
+    cv, ci = topk_small(cells, pool_geometry(((h, w),), (max_pts,), cell).k_cell[0])
     cell_ids = torch.arange(gh * gw, device=score.device)[:, None]
     flat_idx = cell_ids * (cell * cell) + ci
-    return cv.reshape(-1), flat_idx.reshape(-1), gw
+    return cv.reshape(-1), flat_idx.reshape(-1)
 
 
-def _finalize_selection(topv, sel, gw: int, cell: int):
-    """Decode top-k winners back to (xy, resp, valid)."""
+def fast_cell_pools_plain(level_imgs, thr_hi: float, thr_lo: float, budgets,
+                          cell: int = 32, masks=None):
+    """Plain version of K1: per level the score maps of ``fast_score_maps``,
+    then ``_cell_candidates``; the pools padded to one length with -inf
+    (index 0) and stacked.  Returns (vals (L, Vmax) f32, idxs (L, Vmax) i64).
+    Any float thresholds."""
+    if masks is None:
+        masks = [None] * len(level_imgs)
+    pools = [_cell_candidates(*fast_score_maps(im, [thr_hi, thr_lo]), b, cell, m)
+             for im, b, m in zip(level_imgs, budgets, masks)]
+    vmax = max(v.shape[0] for v, _ in pools)
+    vals = torch.stack([F.pad(v, (0, vmax - v.shape[0]), value=float("-inf")) for v, _ in pools])
+    idxs = torch.stack([F.pad(i, (0, vmax - i.shape[0])) for _, i in pools])
+    return vals, idxs
+
+
+KERNEL_CELL = 32     # the cell side K1 is compiled for (csrc/fast.cu CELL)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_table(shapes, budgets) -> kernels.LevelTable:
+    """K1's table with the geometry filled in and no pointers."""
+    n = len(shapes)
+    if n > kernels.MAX_LEVELS:
+        raise ValueError(f"at most {kernels.MAX_LEVELS} levels, got {n}")
+    geo = pool_geometry(shapes, budgets, KERNEL_CELL)
+    table = kernels.LevelTable()
+    table.num_levels, table.vmax = n, geo.vmax
+    start = 0
+    for l, (h, w) in enumerate(shapes):
+        table.height[l], table.width[l] = h, w
+        table.cells_x[l], table.k_cell[l] = geo.cells_x[l], geo.k_cell[l]
+        table.cell_start[l] = start
+        start += geo.cells[l]
+    table.cell_start[n] = start
+    return table
+
+
+def kernel_args(level_imgs, thr_hi: float, thr_lo: float, budgets, cell: int = KERNEL_CELL,
+                masks=None):
+    """Check the operands of one K1 launch and allocate its outputs.
+    Returns (ctypes arguments of ``fast_cell_pools`` in csrc/fast.cu,
+    (vals, idxs), tensors to keep alive); the arguments hold pointers that
+    must outlive the launch."""
+    dev = level_imgs[0].device
+    if cell != KERNEL_CELL:
+        raise ValueError(f"K1 is built for {KERNEL_CELL}-px cells, got {cell}")
+    thr = (float(thr_hi), float(thr_lo))
+    if not all(t.is_integer() and 0 <= t <= 255 for t in thr):
+        raise ValueError(f"K1 takes integer thresholds in [0, 255], got {thr}")
+    if len(budgets) != len(level_imgs) or (masks is not None and len(masks) != len(level_imgs)):
+        raise ValueError("one budget (and mask) per level")
+    shapes = tuple(tuple(im.shape) for im in level_imgs)
+    table = kernels.LevelTable.from_buffer_copy(_level_table(shapes, tuple(budgets)))
+    keep = list(level_imgs)
+    for l, im in enumerate(level_imgs):
+        if im.dtype != torch.float32 or im.ndim != 2 or im.device != dev or not im.is_contiguous():
+            raise ValueError("levels must be contiguous 2-D float32 tensors on one device")
+        table.img[l] = im.data_ptr()
+        m = None if masks is None else masks[l]
+        if m is not None:
+            if tuple(m.shape) != shapes[l] or m.device != dev:
+                raise ValueError("a level's mask must have its shape and device")
+            m = (m > 0).contiguous()
+            keep.append(m)
+            table.mask[l] = m.data_ptr()
+    vals = torch.empty((len(shapes), table.vmax), dtype=torch.float32, device=dev)
+    idxs = torch.empty((len(shapes), table.vmax), dtype=torch.int64, device=dev)
+    args = (table, *thr, vals.data_ptr(), idxs.data_ptr(), kernels.stream_ptr(dev))
+    return args, (vals, idxs), keep + [vals, idxs]
+
+
+def fast_cell_pools(level_imgs, thr_hi: float, thr_lo: float, budgets, cell: int = 32,
+                    masks=None):
+    """The candidate pools of every pyramid level: FAST at both thresholds,
+    the preference for high-threshold corners, 3x3 NMS, the optional masks
+    (> 0 = usable) and the per-cell top-k.  Returns (vals (L, Vmax) f32,
+    padded with -inf; idxs (L, Vmax) i64 into each level's padded
+    (gh, gw, cell, cell) layout, padded with 0).
+
+    CPU tensors take the plain version (any float thresholds).  CUDA
+    tensors launch kernel K1 once for all levels; it takes levels of
+    integers in [0, 255] (the pyramid's) and integer thresholds in
+    [0, 255], which keep every score an integer its top-k keys can hold,
+    and raises on other thresholds or a cell other than 32.  Any other
+    device raises."""
+    dev = level_imgs[0].device
+    if dev.type == "cpu":
+        return fast_cell_pools_plain(level_imgs, thr_hi, thr_lo, budgets, cell, masks)
+    if dev.type != "cuda":
+        raise RuntimeError(f"fast_cell_pools: unsupported device {dev}")
+    args, out, _keep = kernel_args(level_imgs, thr_hi, thr_lo, budgets, cell, masks)
+    kernels.check(kernels.library("fast")(*args), "fast_cell_pools")
+    kernels.LAUNCHES["fast_score_maps"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _cells_x_column(cells_x, device) -> torch.Tensor:
+    return torch.tensor(cells_x, dtype=torch.int64, device=device)[:, None]
+
+
+def _finalize_selection(topv, sel, gw, cell: int):
+    """Decode top-k winners back to (xy, resp, valid); ``gw``, the cells
+    per row, is an int or an (L, 1) column with one entry per level."""
     cell_id = sel // (cell * cell)
     in_cell = sel % (cell * cell)
     y = (cell_id // gw) * cell + in_cell // cell
@@ -166,28 +244,23 @@ def _finalize_selection(topv, sel, gw: int, cell: int):
     return torch.stack([x, y], -1).to(torch.float32), resp, valid
 
 
-def select_from_scores_multi(score_pairs, budgets, cell: int = 32, masks=None):
-    """Per-level candidate pools, then one stable descending sort over all
-    levels; each level keeps its first ``budget`` winners."""
-    if masks is None:
-        masks = [None] * len(score_pairs)
-    pools = [_cell_candidates(s_hi, s_lo, b, cell, m)
-             for (s_hi, s_lo), b, m in zip(score_pairs, budgets, masks)]
-    vmax = max(p[0].shape[0] for p in pools)
+def select_from_pools(vals, idxs, shapes, budgets, cell: int = 32):
+    """One stable descending sort over the pools of all levels (JAX's
+    batched ``lax.top_k``); each level keeps its first ``budget`` winners,
+    decoded once for all levels.  Returns [(xy, resp, valid), ...]."""
+    geo = pool_geometry(tuple(tuple(s) for s in shapes), tuple(budgets), cell)
     kmax = max(budgets)
-    vals = torch.stack([F.pad(v, (0, vmax - v.shape[0]), value=float("-inf"))
-                        for v, _, _ in pools])
-    idxs = torch.stack([F.pad(i, (0, vmax - i.shape[0])) for _, i, _ in pools])
     topv, topi = torch.sort(vals, dim=1, descending=True, stable=True)
     topv, topi = topv[:, :kmax], topi[:, :kmax]
     sel = torch.gather(idxs, 1, topi)
-    return [_finalize_selection(topv[l, :b], sel[l, :b], pools[l][2], cell)
-            for l, b in enumerate(budgets)]
+    xy, resp, valid = _finalize_selection(topv, sel, _cells_x_column(geo.cells_x, vals.device),
+                                          cell)
+    return [(xy[l, :b], resp[l, :b], valid[l, :b]) for l, b in enumerate(budgets)]
 
 
 def detect_levels(level_imgs, ini_threshold: float, min_threshold: float,
                   budgets, cell: int = 32, masks=None) -> List[Tuple]:
-    """All-pyramid detection: score maps of every level (K1 on the GPU),
-    then one cross-level selection.  Returns [(xy, resp, valid), ...]."""
-    score_pairs = fast_score_maps_levels(level_imgs, ini_threshold, min_threshold)
-    return select_from_scores_multi(score_pairs, budgets, cell=cell, masks=masks)
+    """All-pyramid detection: the candidate pools of every level (K1 on the
+    GPU), then one cross-level selection.  Returns [(xy, resp, valid), ...]."""
+    vals, idxs = fast_cell_pools(level_imgs, ini_threshold, min_threshold, budgets, cell, masks)
+    return select_from_pools(vals, idxs, [im.shape for im in level_imgs], budgets, cell)

@@ -7,7 +7,8 @@ Tolerances, as stated per test:
   arithmetic is reproduced but not bit for bit), stated in
   test_pyramid_residue; the front-end test is fed JAX's levels;
 * FAST score maps: bit-exact against fast_score_maps and against
-  fast_score_maps_pallas(interpret=True);
+  fast_score_maps_pallas(interpret=True); K1's candidate pools (plain
+  version) bit-exact against JAX's _cell_candidates, padding included;
 * keypoint xy / level / response / valid: identical;
 * angles within 1e-5 rad; descriptor bits >= 99.9 % equal (the residue
   is stated by the test).
@@ -129,12 +130,63 @@ def test_fast_score_maps_bit_exact(rng):
         np.testing.assert_array_equal(o, r)
         np.testing.assert_array_equal(o, p)
     assert ours[0].max() > 0
-    # the all-levels wrapper takes the plain version for CPU tensors
-    levels = [_t(img), _t(img[:40, :100])]
-    for (hi, lo), im in zip(fast.fast_score_maps_levels(levels, 20.0, 7.0), levels):
-        r_hi, r_lo = jfast.fast_score_maps(jnp.asarray(im.numpy()), [20.0, 7.0])
-        np.testing.assert_array_equal(hi.numpy(), np.asarray(r_hi))
-        np.testing.assert_array_equal(lo.numpy(), np.asarray(r_lo))
+    # the all-levels entry takes the plain version for CPU tensors
+    levels, budgets = [img, img[:40, :100]], [64, 16]
+    vals, idxs = fast.fast_cell_pools([_t(x) for x in levels], 20.0, 7.0, budgets)
+    r_vals, r_idxs = _jax_pools(levels, budgets, None)
+    np.testing.assert_array_equal(vals.numpy(), r_vals)
+    np.testing.assert_array_equal(idxs.numpy(), r_idxs)
+
+
+def _jax_pools(levels, budgets, masks, thr=(20.0, 7.0)):
+    """JAX's per-level _cell_candidates(fast_score_maps(...)), padded and
+    stacked as its select_from_scores_multi does."""
+    if masks is None:
+        masks = [None] * len(levels)
+    pools = [jfast._cell_candidates(*jfast.fast_score_maps(jnp.asarray(x), list(thr)), b, 32,
+                                    None if m is None else jnp.asarray(m))[:2]
+             for x, b, m in zip(levels, budgets, masks)]
+    vmax = max(v.shape[0] for v, _ in pools)
+    vals = np.stack([np.pad(np.asarray(v), (0, vmax - v.shape[0]), constant_values=-np.inf)
+                     for v, _ in pools])
+    idxs = np.stack([np.pad(np.asarray(i), (0, vmax - i.shape[0])) for _, i in pools])
+    return vals, idxs
+
+
+_LEVEL_SHAPES, _BUDGETS = [(96, 160), (80, 133), (67, 111), (56, 93)], [64, 48, 32, 24]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fast_cell_pools_plain_matches_jax(rng, masked):
+    """K1's plain version: the pools of every level, bit-exact in vals and
+    idxs, padding included, against JAX's candidate pools."""
+    levels = [rng.integers(0, 255, s).astype(np.float32) for s in _LEVEL_SHAPES]
+    masks = [(rng.random(s) > 0.3).astype(np.float32) for s in _LEVEL_SHAPES] if masked else None
+    vals, idxs = fast.fast_cell_pools_plain([_t(x) for x in levels], 20.0, 7.0, _BUDGETS,
+                                            masks=None if masks is None else [_t(m) for m in masks])
+    r_vals, r_idxs = _jax_pools(levels, _BUDGETS, masks)
+    assert vals.dtype == torch.float32 and idxs.dtype == torch.int64
+    assert vals.shape == r_vals.shape == (4, fast.pool_geometry(
+        tuple(_LEVEL_SHAPES), tuple(_BUDGETS), 32).vmax)
+    np.testing.assert_array_equal(vals.numpy(), r_vals)
+    np.testing.assert_array_equal(idxs.numpy(), r_idxs)
+    assert np.isinf(r_vals).any() and (r_vals > 1e4).any()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_select_from_pools_equals_per_level_finalize(rng, masked):
+    """The one finalize over (L, kmax) with a per-level cells-per-row column
+    gives what a finalize per level with its own gw gives."""
+    levels = [_t(rng.integers(0, 255, s).astype(np.float32)) for s in _LEVEL_SHAPES]
+    masks = [_t((rng.random(s) > 0.3).astype(np.float32)) for s in _LEVEL_SHAPES] if masked else None
+    vals, idxs = fast.fast_cell_pools_plain(levels, 20.0, 7.0, _BUDGETS, masks=masks)
+    got = fast.select_from_pools(vals, idxs, _LEVEL_SHAPES, _BUDGETS)
+    topv, topi = torch.sort(vals, dim=1, descending=True, stable=True)
+    sel = torch.gather(idxs, 1, topi)
+    for l, ((h, w), b) in enumerate(zip(_LEVEL_SHAPES, _BUDGETS)):
+        want = fast._finalize_selection(topv[l, :b], sel[l, :b], -(-w // 32), 32)
+        for g, r in zip(got[l], want):
+            assert g.shape == r.shape and torch.equal(g, r)
 
 
 def test_topk_small_equals_lax_topk(rng):
@@ -148,8 +200,7 @@ def test_topk_small_equals_lax_topk(rng):
 
 @pytest.mark.parametrize("masked", [False, True])
 def test_detect_levels_matches_jax(rng, masked):
-    shapes = [(96, 160), (80, 133), (67, 111), (56, 93)]
-    budgets = [64, 48, 32, 24]
+    shapes, budgets = _LEVEL_SHAPES, _BUDGETS
     levels = [rng.integers(0, 255, s).astype(np.float32) for s in shapes]
     masks = [(rng.random(s) > 0.3).astype(np.float32) for s in shapes] if masked else None
     ref = jax.jit(lambda lv, ms: jfast.detect_levels(lv, 20.0, 7.0, budgets, cell=32, masks=ms))(

@@ -84,12 +84,12 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
 def test_wrappers_dispatch_by_device(rng):
     before = kernels.launch_counts()
     img = torch.from_numpy(rng.integers(0, 255, (32, 40)).astype(np.float32))
-    (hi, lo), = fast.fast_score_maps_levels([img], 20.0, 7.0)
-    assert hi.shape == img.shape
+    vals, idxs = fast.fast_cell_pools([img], 20.5, 7.0, [16])   # any threshold on the CPU
+    assert vals.shape == idxs.shape == (1, 2 * 33)
     assert kernels.launch_counts() == before
     meta = torch.empty((8, 8), device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
-        fast.fast_score_maps_levels([meta], 20.0, 7.0)
+        fast.fast_cell_pools([meta], 20.0, 7.0, [16])
     d = torch.empty((4, 8), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
         match.projection_scale_match(d, d, *[torch.empty(4, device="meta")] * 7)

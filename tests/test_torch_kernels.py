@@ -5,7 +5,9 @@ JAX, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 
-Tolerances: K1 FAST maps bit-exact; K2 matcher idx/dist exact, also on
+Tolerances: K1's candidate pools and the selection after them bit-exact
+(8 levels of noise, a rendered frame, random masks, a level smaller than a
+cell, a blank image, thr_hi below thr_lo); K2 matcher idx/dist exact, also on
 the adversarial inputs of ``synthetic.adversarial_match_cases`` (keypoints
 outside the image, radii beyond it, invisible rows, ragged L, ties); K3
 pose LM T within atol 1e-3 and inlier agreement >= 0.99 (block reductions
@@ -22,6 +24,7 @@ import torch
 from openvslam_tpu_torch import kernels
 from openvslam_tpu_torch.camera import Perspective
 from openvslam_tpu_torch.models.frame_step import FrameStep
+from openvslam_tpu_torch.models.frontend import level_budgets
 from openvslam_tpu_torch.ops import fast, match as M, pose_lm, pyramid, se3
 from openvslam_tpu_torch.ops.orb import pack_bits
 from openvslam_tpu_torch.utils import synthetic
@@ -41,15 +44,70 @@ def cuda():
     return torch.device("cuda")
 
 
-def test_fast_kernel_equals_plain(rng, cuda):
-    img = torch.from_numpy(rng.integers(0, 256, (480, 640)).astype(np.float32)).to(cuda)
-    levels = pyramid.build_pyramid(img, 8, 1.2)
+def _k1_case(case, rng):
+    """(levels, budgets, masks, thr_hi, thr_lo) of one K1 case, on the CPU."""
+    noise = torch.from_numpy(rng.integers(0, 256, (480, 640)).astype(np.float32))
+    budgets = level_budgets(1024, 8, 1.2)
+    if case == "rendered":
+        cam = Perspective(fx=520.0, fy=520.0, cx=320.0, cy=240.0, cols=640, rows=480)
+        scene = synthetic.PatchSceneRenderer(np.random.default_rng(5), n_points=900,
+                                             center=(0, 0, 6), extent=(7, 5, 2.5),
+                                             rows=480, cols=640)
+        pose = synthetic.orbit_trajectory(40, radius=2.5, target=(0, 0, 6), arc=np.pi / 4)[1]
+        img = torch.from_numpy(scene.render(cam, pose)).to(torch.float32)
+        return pyramid.build_pyramid(img, 8, 1.2), budgets, None, 20.0, 7.0
+    if case == "small":                      # a level smaller than one 32x32 cell
+        levels = [noise[:64, :96].contiguous(), noise[100:120, 200:224].contiguous()]
+        return levels, [48, 16], None, 20.0, 7.0
+    if case == "blank":
+        return [torch.zeros(s) for s in pyramid.level_shapes(480, 640, 8, 1.2)], budgets, None, 20.0, 7.0
+    levels = pyramid.build_pyramid(noise, 8, 1.2)
+    if case == "mask":
+        masks = [torch.from_numpy(rng.random(tuple(im.shape)) > 0.3).to(torch.float32)
+                 for im in levels]
+        masks[3] = torch.zeros_like(masks[3])
+        return levels, budgets, masks, 20.0, 7.0
+    return levels, budgets, None, *((7.0, 20.0) if case == "thr_hi_below_lo" else (20.0, 7.0))
+
+
+@pytest.mark.parametrize("case", ["noise", "rendered", "mask", "small", "blank", "thr_hi_below_lo"])
+def test_fast_kernel_equals_plain(rng, cuda, case):
+    """K1's pools and the selection after it, bit-exact against the plain
+    composition, in one launch over all levels."""
+    levels, budgets, masks, thr_hi, thr_lo = _k1_case(case, rng)
+    levels = [im.to(cuda) for im in levels]
+    masks = None if masks is None else [m.to(cuda) for m in masks]
     before = kernels.launch_counts()["fast_score_maps"]
-    got = fast.fast_score_maps_levels(levels, 20.0, 7.0)
+    vals, idxs = fast.fast_cell_pools(levels, thr_hi, thr_lo, budgets, masks=masks)
     assert kernels.launch_counts()["fast_score_maps"] == before + 1
-    for (hi, lo), im in zip(got, levels):
-        p_hi, p_lo = fast.fast_score_maps(im, [20.0, 7.0])
-        assert torch.equal(hi, p_hi) and torch.equal(lo, p_lo)
+    p_vals, p_idxs = fast.fast_cell_pools_plain(levels, thr_hi, thr_lo, budgets, masks=masks)
+    assert torch.equal(vals, p_vals) and torch.equal(idxs, p_idxs)
+    shapes = [im.shape for im in levels]
+    got = fast.detect_levels(levels, thr_hi, thr_lo, budgets, masks=masks)
+    want = fast.select_from_pools(p_vals, p_idxs, shapes, budgets)
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+    n_corners = int((vals > 0).sum())
+    if case == "blank":                      # zeros at each cell's lowest in-cell indices
+        geo = fast.pool_geometry(tuple(tuple(s) for s in shapes), tuple(budgets), 32)
+        for l, (n, k) in enumerate(zip(geo.cells, geo.k_cell)):
+            assert not bool(vals[l, :n * k].any())
+            want_idx = torch.arange(n, device=cuda)[:, None] * 1024 + torch.arange(k, device=cuda)
+            assert torch.equal(idxs[l, :n * k], want_idx.reshape(-1))
+    else:
+        assert n_corners > 0
+    if case == "mask":
+        assert not bool((vals[3] > 0).any())
+
+
+def test_fast_kernel_refuses_bad_thresholds(rng, cuda):
+    levels = [im.to(cuda) for im in _k1_case("noise", rng)[0]]
+    budgets = level_budgets(1024, 8, 1.2)
+    for thr in ((20.5, 7.0), (20.0, 6.9), (20.0, -1.0), (256.0, 7.0)):
+        with pytest.raises(ValueError, match="integer thresholds"):
+            fast.fast_cell_pools(levels, *thr, budgets)
+    with pytest.raises(ValueError, match="cells"):
+        fast.fast_cell_pools(levels, 20.0, 7.0, budgets, cell=16)
 
 
 def _match_problem(rng, L, K, device):
