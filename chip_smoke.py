@@ -16,12 +16,20 @@ Phases:
      with profiles of the step and of its extract alone;
   4. the mono TrackStep at System's working point (1000 keypoints, 4096
      local landmarks), the previous frame's matches as the last-frame table,
-     with its first frames re-run on the CPU through the plain versions.
+     with its first frames re-run on the CPU through the plain versions;
+  5. the monocular System with synchronous mapping at bench.py's system
+     point (640x480, 1000 keypoints, 8 levels; loop detection off, as it is
+     not ported) over a 240-frame rendered orbit: two-view bootstrap, fused
+     and classic tracking, keyframes, triangulation, fusion, local BA and
+     keyframe culling.  Its first bootstrap attempt and its first and last
+     local BA problems are captured during the run, replayed on the CPU
+     and held against the card's results.
 Kernel launch counts are reset just before each main-path run and read just
-after it.  Any mismatch, any kernel that the main path did not launch, or
+after it.  Any mismatch, any kernel that a main-path run did not launch, or
 any exception exits non-zero.  The last line is a JSON object with the
 device; the line before it is the card's name and power limit; the line
-before that lists every kernel with its numbers.
+before that lists every kernel with its numbers and its launches in the
+three main-path runs (FrameStep, TrackStep, System).
 """
 from __future__ import annotations
 
@@ -140,6 +148,228 @@ def build_local_map(fs_or_fe, cam, scene, T0_cw, img0, L, device):
             lm_kp[n] = j
             n += 1
     return lm_pos, lm_desc, lm_valid, lm_kp, kp_level, kp_desc, n
+
+
+def system_phase(dev, n: int = 240):
+    """Phase 5: the port's System on ``dev`` (the card) at bench.py's system
+    point (``bench.py:60-77``, loop detection off) over ``n`` rendered
+    frames, fed one by one at 20 fps timestamps.  Returns (summary dict,
+    launch counts of the run)."""
+    import torch
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.initialize import two_view as TV
+    from openvslam_tpu_torch.optimize.ba import BAResult, make_local_ba
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate, synthetic
+
+    cfg = Config.from_dict({
+        "Camera": {"name": "bench-mono", "setup": "monocular", "model": "perspective",
+                   "fx": 520.0, "fy": 520.0, "cx": 320.0, "cy": 240.0,
+                   "cols": 640, "rows": 480, "fps": 20},
+        "Feature": {"max_num_keypts": 1000, "num_levels": 8, "scale_factor": 1.2},
+        "LoopDetector": {"enabled": False},
+    })
+    cam = cfg.camera
+    scene = synthetic.PatchSceneRenderer(np.random.default_rng(11), n_points=900,
+                                         center=(0, 0, 6), extent=(7, 5, 2.5),
+                                         rows=cam.rows, cols=cam.cols)
+    warm = 40
+    gt = synthetic.orbit_trajectory(n, radius=2.5, target=(0, 0, 6), arc=np.pi / 3)
+    t = time.perf_counter()
+    imgs = [scene.render(cam, gt[i]) for i in range(n)]
+    log(f"System: {n} frames rendered in {time.perf_counter() - t:.1f}s; LoopDetector.enabled "
+        f"false (loop closure and relocalization are not ported)")
+
+    # capture the first and last bootstrap attempts (operands, generator
+    # state, result) and the first and last local BA problems while the
+    # run drives them
+    captured = {"init": [], "ba": []}
+    attempt = TV.init_attempt
+
+    def spy_attempt(gen, *args, **kw):
+        state = gen.get_state()
+        out = attempt(gen, *args, **kw)
+        captured["init"] = captured["init"][:1] + [dict(state=state, args=args, out=out)]
+        return out
+
+    s = System(cfg, device=dev)
+    local_ba = s.mapper.local_ba
+
+    def spy_ba(prob):
+        res = local_ba(prob)
+        captured["ba"] = captured["ba"][:1] + [(prob, res)]
+        return res
+
+    TV.init_attempt, s.mapper.local_ba = spy_attempt, spy_ba
+    s.startup()
+    poses, prof_frames, by_name = [], range(120, 130), None
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        i = 0
+        while i < n:
+            if cuda and n > prof_frames[-1] and i == prof_frames[0]:
+                # a torch.profiler window over ten frames, kept out of the
+                # frame-time statistics below (tracing slows the host)
+                feed = lambda j: poses.append(s.feed_monocular_frame(imgs[j], j / 20.0))  # noqa: E731
+                by_name = profile_window(feed, prof_frames)
+                i = prof_frames[-1] + 1
+                continue
+            poses.append(s.feed_monocular_frame(imgs[i], i / 20.0))
+            i += 1
+        sync()
+    finally:
+        TV.init_attempt = attempt
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    s.shutdown()
+    st = s.stats()
+
+    tracked = np.array([p is not None for p in poses])
+    first = int(np.argmax(tracked)) if tracked.any() else -1
+    idx = np.where(tracked)[0]
+    ate = float("inf")
+    if len(idx) >= 3:
+        ce = np.stack([-poses[i][:3, :3].T @ poses[i][:3, 3] for i in idx])
+        cg = np.stack([-gt[i][:3, :3].T @ gt[i][:3, 3] for i in idx])
+        ate = float(evaluate.ate_rmse(ce, cg, align="sim3"))
+    timed = [j for j in range(warm, n) if not (by_name is not None and j in prof_frames)]
+    tt = np.array(s.track_times)[timed] * 1e3
+    m = s.mapper
+    inserted = max(s.map_db.n_kfs - 2, 1)
+    per_frame = {k: v / max(len(idx), 1) for k, v in counts.items()}
+    # device time of the traced frames against the untraced median frame
+    prof = (profile_summary(by_name, len(prof_frames), float(np.median(tt)))
+            if by_name is not None else None)
+    out = dict(
+        frames=n, first_tracked=first, tracked_share=float(tracked.mean()), ate_sim3_m=ate,
+        keyframes=st["num_keyframes"], keyframes_inserted=s.map_db.n_kfs,
+        keyframes_culled=m.kfs_culled, landmarks=st["num_landmarks"],
+        fused_frames=st["fused_frames"], classic_frames=n - st["fused_frames"],
+        track_ms_median_after_40=float(np.median(tt)),
+        track_ms_p90_after_40=float(np.percentile(tt, 90)),
+        fps_median_after_40=float(1e3 / np.median(tt)), wall_s=wall, wall_fps=n / wall,
+        local_ba_runs=m.ba_runs, local_ba_ms_mean=m.ba_wall_s / max(m.ba_runs, 1) * 1e3,
+        mapping_ms_per_keyframe=sum(m.phase_s.values()) / inserted * 1e3,
+        mapping_phase_ms_per_keyframe={k: v / inserted * 1e3 for k, v in m.phase_s.items()},
+        lms_created=m.lms_created, lms_culled=m.lms_culled, overflow=st["overflow"],
+        fetch_wait_ms_per_fused_frame=st["fetch_wait_s"] / max(st["fused_frames"], 1) * 1e3,
+        launches=counts, launches_per_tracked_frame=per_frame,
+        profile_frames_120_129=prof,
+        loop_detector="disabled: loop closure and relocalization are not ported")
+    log(f"System: first pose at frame {first}, tracked {tracked.mean():.3f}, ATE(sim3) {ate:.4f} m, "
+        f"{st['num_keyframes']} keyframes ({s.map_db.n_kfs} inserted, {m.kfs_culled} culled), "
+        f"{st['num_landmarks']} landmarks; fused {st['fused_frames']} classic "
+        f"{n - st['fused_frames']}; track ms median {out['track_ms_median_after_40']:.2f} "
+        f"p90 {out['track_ms_p90_after_40']:.2f} after frame {warm}; wall {wall:.1f}s")
+    log(f"System mapping: {m.ba_runs} local BA runs at {out['local_ba_ms_mean']:.1f} ms, "
+        f"{out['mapping_ms_per_keyframe']:.1f} ms per keyframe "
+        f"({', '.join(f'{k} {v:.1f}' for k, v in out['mapping_phase_ms_per_keyframe'].items())}); "
+        f"readback {out['fetch_wait_ms_per_fused_frame']:.2f} ms per fused frame; "
+        f"overflow {st['overflow']}; launches {counts}")
+    if prof is not None:
+        log(f"System profile (frames 120-129): device busy {prof['device_busy_ms_per_frame']:.3f} "
+            f"ms/frame over {prof['kernels_per_frame']:.0f} kernels; idle share "
+            f"{prof['device_idle_share']} of the untraced median frame "
+            f"({prof['frame_ms']:.2f} ms)")
+        for row in prof["top"]:
+            log(f"  {row['ms_per_frame']:.4f} ms/frame x{row['calls_per_frame']:.0f}  {row['name']}")
+
+    # the first and last bootstrap attempts: their draws replayed from the
+    # generator's state on the card, each attempt re-solved on the card and
+    # on the CPU.  A pose is compared only where a hypothesis has support
+    # (an attempt without parallax leaves every count at 0 and T21 arbitrary)
+    if not captured["init"]:
+        fail("System never attempted the two-view bootstrap")
+    out["init_check"] = []
+    ok_init = True
+    exact = ("num_matches", "use_h", "counts", "good", "m1", "m2", "pmask", "n_inl")
+    for tag, cap in zip(("first", "last"), captured["init"]):
+        gen = torch.Generator(device=dev)
+        gen.set_state(cap["state"])
+        pairs = TV.init_pairs(*cap["args"][:12])
+        sh, sf = TV.draw_samples(gen, pairs.pmask)
+        again = TV.solve_pairs(pairs, sh, sf, cap["args"][12])
+        cpu = TV.init_attempt_with_samples(sh.cpu(), sf.cpu(), *(a.cpu() for a in cap["args"]))
+        card = cap["out"]
+        same = all(torch.equal(getattr(card, f).cpu(), getattr(o, f).cpu())
+                   for o in (again, cpu) for f in exact)
+        posed = int(card.counts.max()) > 0
+        dT21 = float((card.T21.cpu() - cpu.T21).abs().max()) if posed else None
+        ok_init &= same and (not posed or dT21 <= 1e-4)
+        out["init_check"].append(dict(attempt=tag, num_matches=int(card.num_matches),
+                                      counts=card.counts.tolist(), use_h=bool(card.use_h),
+                                      exact_fields_equal=same, T21_max_abs_diff=dT21,
+                                      tolerance=1e-4))
+        log(f"System bootstrap replay ({tag} attempt): card {card.counts.tolist()} vs CPU "
+            f"{cpu.counts.tolist()}, {int(card.num_matches)} matches, counts/masks equal {same}, "
+            f"|dT21| {dT21}")
+    # the first and last local BA problems re-solved on the CPU
+    ba_cpu = make_local_ba(cam, m.BA_FIRST_ITERS, m.BA_SECOND_ITERS)
+    out["ba_check"] = []
+    ok_ba = bool(captured["ba"])
+    for tag, (prob, res) in zip(("first", "last"), captured["ba"]):
+        row = ba_agreement(cam, prob.to("cpu"), BAResult(*(t.cpu() for t in res)),
+                           ba_cpu(prob.to("cpu")))
+        ok_ba &= row["ok"]
+        out["ba_check"].append(dict(problem=tag, **row))
+        log(f"System local BA ({tag}) card vs CPU: {row}")
+
+    if first < 0 or first > 15:
+        fail(f"System: no pose by frame 15 (first {first})")
+    if tracked.mean() < 0.90:
+        fail(f"System: tracked share {tracked.mean():.3f} below 0.90")
+    if not ate <= 0.05:
+        fail(f"System: ATE(sim3) {ate:.4f} m above 0.05 m")
+    if min(counts.values()) == 0:
+        fail(f"System did not launch every kernel: {counts}")
+    if not ok_init:
+        fail("System: the card's bootstrap attempt disagrees with the CPU's")
+    if not ok_ba:
+        fail("System: the card's local BA disagrees with the CPU's")
+    return out, counts
+
+
+def ba_agreement(cam, prob, res, ref):
+    """How closely a local BA result ``res`` agrees with ``ref`` on the same
+    problem.  Raw pose and point differences are reported; the pass
+    criterion is on what the solution predicts, since a mono window with
+    one fixed camera leaves the scale free and two-view landmarks of low
+    parallax have no well-determined depth: the same inlier set, the
+    final cost within 1e-4 of the reference's, and every inlier
+    observation reprojected within 0.05 px of the reference's
+    reprojection."""
+    import torch
+    from openvslam_tpu_torch.optimize.ba import mono_residuals
+    from openvslam_tpu_torch.utils import evaluate
+
+    cv, lv = prob.cam_valid, prob.lm_valid
+    n = int(prob.obs_mask.sum())
+    oc, ol, uv = prob.obs_cam[:n].long(), prob.obs_lm[:n].long(), prob.obs_uv[:n]
+    pred = [uv - mono_residuals(cam, r.T_cw, r.X, oc, ol, uv)[0] for r in (res, ref)]
+    inl = ref.obs_inlier[:n]
+    reproj = float((pred[0] - pred[1]).norm(dim=-1)[inl].max()) if bool(inl.any()) else 0.0
+    cost_rel = abs(float(res.cost) - float(ref.cost)) / max(abs(float(ref.cost)), 1e-12)
+    same_inl = bool(torch.equal(res.obs_inlier, ref.obs_inlier))
+    dT = float((res.T_cw - ref.T_cw)[cv].abs().max())
+    Xr = ref.X[lv]
+    dX = (res.X[lv] - Xr).norm(dim=-1) / Xr.norm(dim=-1).clamp(min=1.0)
+
+    def centres(r):
+        T = r.T_cw[cv].double()
+        return -(T[:, :3, :3].transpose(1, 2) @ T[:, :3, 3:])[..., 0].numpy()
+
+    scale = evaluate.umeyama_alignment(centres(res), centres(ref))[0] if int(cv.sum()) > 2 else 1.0
+    return dict(cams=int(cv.sum()), fixed_cams=int((cv & ~prob.cam_opt).sum()),
+                landmarks=int(lv.sum()), observations=n, inliers_equal=same_inl,
+                cost_rel_diff=cost_rel, reproj_max_px=reproj, T_max_abs_diff=dT,
+                X_max_rel_diff=float(dX.max()), X_median_rel_diff=float(dX.median()),
+                centres_sim3_scale=float(scale),
+                ok=same_inl and cost_rel <= 1e-4 and reproj <= 0.05)
 
 
 def main() -> int:
@@ -557,16 +787,21 @@ def main() -> int:
         if not (same_kp and src_agree >= 0.99 and dT <= 1e-3 and abs(ni - nc) <= 0.02 * max(nc, 1)):
             fail("TrackStep on the GPU disagrees with the plain CPU path")
 
+    # ---------------------------------------------------------------- 5
+    sys_out, sys_counts = system_phase(dev)
+
     # ---------------------------------------------------------------- out
     kernels_out = []
     for key, r in report.items():
         kernels_out.append(dict(
-            r, launches=fs_counts[key] + ts_counts[key], launches_framestep=fs_counts[key],
-            launches_trackstep=ts_counts[key]))
-        log(f"kernel {r['name']}: launches FrameStep {fs_counts[key]} TrackStep {ts_counts[key]}; "
-            f"max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms ({r['ms_kernel_only']:.4f} ms "
-            f"kernel alone) vs plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.6f} ms "
-            f"({r['bound_by']})")
+            r, launches=fs_counts[key] + ts_counts[key] + sys_counts[key],
+            launches_framestep=fs_counts[key], launches_trackstep=ts_counts[key],
+            launches_system=sys_counts[key],
+            launches_system_per_tracked_frame=sys_out["launches_per_tracked_frame"][key]))
+        log(f"kernel {r['name']}: launches FrameStep {fs_counts[key]} TrackStep {ts_counts[key]} "
+            f"System {sys_counts[key]}; max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
+            f"({r['ms_kernel_only']:.4f} ms kernel alone) vs plain {r['plain_ms']:.3f} ms; "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     print(json.dumps({"profile": {"framestep": fs_prof, "trackstep": ts_prof,
                                   "framestep_extract_ms": extract_ms, "extract": ex_prof}}),
           flush=True)
@@ -574,7 +809,12 @@ def main() -> int:
                    framestep_terr_median_m=float(np.median(terr)),
                    trackstep_fps=ts_fps, trackstep_inliers_median=float(np.median(inl2)),
                    trackstep_terr_median_m=float(np.median(terr2)),
-                   trackstep_terr_max_m=float(max(terr2)), seconds=time.perf_counter() - T0)
+                   trackstep_terr_max_m=float(max(terr2)),
+                   system_fps_median=sys_out["fps_median_after_40"],
+                   system_ate_sim3_m=sys_out["ate_sim3_m"],
+                   system_tracked_share=sys_out["tracked_share"],
+                   seconds=time.perf_counter() - T0)
+    print(json.dumps({"system": sys_out}), flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(card, flush=True)

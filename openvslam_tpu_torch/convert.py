@@ -5,12 +5,14 @@ JAX array gives), so nothing here imports JAX.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from .camera.base import make_camera_from_config
+from .data.map_database import MapDatabase
 from .device import resolve_device
 from .models.frontend import OrbFrontend
 from .models.track_step import LastFrame, LocalMap
@@ -72,3 +74,25 @@ def local_map_from_numpy(loc_pos, loc_desc, loc_valid, loc_maxd, loc_prev_slot,
                     valid=_t(loc_valid, torch.bool, dev),
                     max_dist=_t(loc_maxd, torch.float32, dev),
                     prev_slot=_t(loc_prev_slot, torch.int64, dev))
+
+
+def map_state(db) -> dict:
+    """Every column and table of a map database (the JAX package's or the
+    port's: both are numpy with the same attribute names) as a dict of
+    deep copies: keyframe, landmark and observation tables, covisibility
+    graph, spanning tree, camera registry and counters."""
+    return copy.deepcopy(dict(vars(db)))
+
+
+def map_database_from_state(state: Mapping[str, Any]) -> MapDatabase:
+    """The port's MapDatabase holding ``state`` (see ``map_state``).  Raises
+    if the state's attributes are not exactly those of the port's class."""
+    db = MapDatabase(kpt_capacity=int(state["K"]), max_kfs=1, max_lms=1)
+    missing = set(vars(db)) - set(state)
+    extra = set(state) - set(vars(db))
+    if missing or extra:
+        raise ValueError(f"map state does not fit the port's MapDatabase: missing "
+                         f"{sorted(missing)}, unknown {sorted(extra)}")
+    for k, v in state.items():
+        setattr(db, k, copy.deepcopy(v))
+    return db

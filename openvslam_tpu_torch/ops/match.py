@@ -33,31 +33,35 @@ HAMMING_DIST_THR_HIGH = 50
 
 
 def hamming_matrix(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
-    """(N,256)/(M,256) {0,1} -> (N,M) int32 Hamming distances, as
+    """(...,N,256)/(...,M,256) {0,1} -> (...,N,M) int32 Hamming distances, as
     popcnt(a) + popcnt(b) - 2 a.b (an f32 product: exact, TF32 is off)."""
     a = bits_a.to(torch.float32)
     b = bits_b.to(torch.float32)
-    dots = (a @ b.T).to(torch.int32)
-    return a.sum(-1).to(torch.int32)[:, None] + b.sum(-1).to(torch.int32)[None, :] - 2 * dots
+    dots = (a @ b.transpose(-1, -2)).to(torch.int32)
+    na = a.sum(-1).to(torch.int32)
+    nb = b.sum(-1).to(torch.int32)
+    return na[..., :, None] + nb[..., None, :] - 2 * dots
 
 
 def top2(dist: torch.Tensor):
-    """Per-row best & second-best: (best_idx, best_d, second_d); the best
-    index is the lowest among ties (argmin takes the first occurrence)."""
-    best_idx = torch.argmin(dist, dim=1)
-    best_d = torch.gather(dist, 1, best_idx[:, None])[:, 0]
-    cols = torch.arange(dist.shape[1], device=dist.device)
-    rest = torch.where(cols[None, :] == best_idx[:, None], torch.iinfo(torch.int32).max, dist)
-    return best_idx, best_d, rest.amin(dim=1)
+    """Per-row best & second-best over the last axis: (best_idx, best_d,
+    second_d); the best index is the lowest among ties (argmin takes the
+    first occurrence)."""
+    best_idx = torch.argmin(dist, dim=-1)
+    best_d = torch.gather(dist, -1, best_idx[..., None])[..., 0]
+    cols = torch.arange(dist.shape[-1], device=dist.device)
+    rest = torch.where(cols == best_idx[..., None], torch.iinfo(torch.int32).max, dist)
+    return best_idx, best_d, rest.amin(dim=-1)
 
 
 def match_descriptors(bits_a, bits_b, valid_a, valid_b, gate=None,
                       max_dist: int = HAMMING_DIST_THR_LOW, ratio=0.9,
                       cross_check: bool = True):
-    """Generic gated matcher.  Returns (idx_b (N,) int32 [-1 unmatched],
-    dist (N,) int32 [LARGE unmatched])."""
+    """Generic gated matcher of rows a against columns b; every operand may
+    carry the same leading batch axes.  Returns (idx_b (...,N) int32 [-1
+    unmatched], dist (...,N) int32 [LARGE unmatched])."""
     d = hamming_matrix(bits_a, bits_b)
-    allowed = valid_a[:, None] & valid_b[None, :]
+    allowed = valid_a[..., :, None] & valid_b[..., None, :]
     if gate is not None:
         allowed = allowed & gate
     d = torch.where(allowed, d, LARGE)
@@ -66,19 +70,64 @@ def match_descriptors(bits_a, bits_b, valid_a, valid_b, gate=None,
     if ratio is not None:
         ok = ok & (best_d.to(torch.float32) <= ratio * second_d.to(torch.float32))
     if cross_check:
-        col_best = torch.argmin(d, dim=0)
-        ok = ok & (col_best[best_idx] == torch.arange(d.shape[0], device=d.device))
+        col_best = torch.argmin(d, dim=-2)
+        rows = torch.arange(d.shape[-2], device=d.device)
+        ok = ok & (torch.gather(col_best, -1, best_idx) == rows)
     return (torch.where(ok, best_idx.to(torch.int32), -1),
             torch.where(ok, best_d, LARGE))
 
 
+def window_gate(xy_a: torch.Tensor, xy_b: torch.Tensor, radius: float) -> torch.Tensor:
+    """(N,2),(M,2) -> (N,M) bool: b within a square window around a (ref match::area)."""
+    dx = torch.abs(xy_a[:, None, 0] - xy_b[None, :, 0])
+    dy = torch.abs(xy_a[:, None, 1] - xy_b[None, :, 1])
+    return (dx < radius) & (dy < radius)
+
+
+def scale_gate(level_a: torch.Tensor, level_b: torch.Tensor, tol: int = 1) -> torch.Tensor:
+    """Octave-consistency gate: |level difference| <= tol."""
+    return torch.abs(level_a[:, None] - level_b[None, :]) <= tol
+
+
+def epipolar_gate(bearings_a, bearings_b, E_ab, thr: float = 2e-3) -> torch.Tensor:
+    """Essential-matrix consistency |b_a^T E b_b| below threshold on the unit
+    sphere (ref match::robust's epipolar check for triangulation pairs).
+    (...,N,3), (...,M,3), (...,3,3) -> (...,N,M) bool."""
+    Eb = bearings_b @ E_ab.transpose(-1, -2)
+    n = Eb / torch.clamp(torch.linalg.norm(Eb, dim=-1, keepdim=True), min=1e-9)
+    return torch.abs(bearings_a @ n.transpose(-1, -2)) < thr
+
+
+def angle_consistency_filter(angles_a, angles_b, idx_b, num_bins: int = 30,
+                             keep_top: int = 3):
+    """Orientation-histogram check (ref ``match/angle_checker.h``): keep only
+    matches whose angle difference falls in the ``keep_top`` fullest of
+    ``num_bins`` bins (ties between bins go to the lower bin, as
+    ``lax.top_k`` breaks them).  angles_a (...,N), angles_b (...,M), idx_b
+    (...,N) -> idx_b with inconsistent matches set to -1."""
+    matched = idx_b >= 0
+    da = angles_a - torch.gather(angles_b, -1, torch.clamp(idx_b, min=0).to(torch.int64))
+    two_pi = 2 * math.pi
+    # floored modulo as XLA computes it: the exact fmod, shifted by 2 pi
+    # where its sign differs from the divisor's
+    da = torch.fmod(da, two_pi)
+    da = torch.where((da != 0) & (da < 0), da + two_pi, da)
+    bin_idx = torch.clamp((da / two_pi * num_bins).to(torch.int32), 0, num_bins - 1).to(torch.int64)
+    hist = torch.zeros(idx_b.shape[:-1] + (num_bins,), dtype=torch.int32, device=idx_b.device)
+    hist.scatter_add_(-1, bin_idx, matched.to(torch.int32))
+    top_bins = torch.sort(hist, dim=-1, descending=True, stable=True).indices[..., :keep_top]
+    in_top = (bin_idx[..., :, None] == top_bins[..., None, :]).any(-1)
+    return torch.where(matched & in_top, idx_b, -1)
+
+
 def projection_gate(proj_uv, proj_valid, xy_b, radius):
     """Keypoint b must lie strictly within ``radius`` (per row) of the
-    projected position of landmark a."""
-    dx = proj_uv[:, None, 0] - xy_b[None, :, 0]
-    dy = proj_uv[:, None, 1] - xy_b[None, :, 1]
+    projected position of landmark a.  (...,L,2), (...,L), (...,K,2), (L,)
+    -> (...,L,K) bool."""
+    dx = proj_uv[..., :, None, 0] - xy_b[..., None, :, 0]
+    dy = proj_uv[..., :, None, 1] - xy_b[..., None, :, 1]
     d2 = dx * dx + dy * dy
-    return proj_valid[:, None] & (d2 < (radius * radius)[:, None])
+    return proj_valid[..., :, None] & (d2 < (radius * radius)[:, None])
 
 
 def projection_scale_match_plain(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level,

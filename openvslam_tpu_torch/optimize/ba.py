@@ -1,0 +1,184 @@
+"""Local bundle adjustment with a dense Schur complement (counterpart of
+``make_local_ba`` in ``openvslam_tpu/optimize/ba.py``; ref g2o's
+``optimize/local_bundle_adjuster``: local KFs + landmarks + fixed observer
+KFs, LM 5 iterations, outlier removal, 10 more).
+
+* The problem is a fixed-capacity SoA (cams C, landmarks L, observations O)
+  with validity masks.
+* Jacobians are the analytic 2x6 (left increment [omega, upsilon]) and 2x3
+  blocks of the perspective mono edge; ``tests/test_torch_mapping.py``
+  holds them against ``torch.func.jacfwd`` of the residual.
+* Per-observation blocks are summed with ``index_add_`` (on CUDA in no
+  fixed order, so card and CPU agree to rounding).
+* Landmark blocks are 3x3, eliminated in parallel (batched inverse); the
+  reduced camera system S (6C x 6C) is ONE matmul, S = blkdiag(Hcc) - Y W^T
+  over the dense (L,C,6,3) cross-block tensor.
+* The 5 + 10 iterations are a Python loop whose accept decision and damping
+  stay 0-d tensors (``torch.where``), and the solves are the ``_ex`` forms:
+  nothing reads a value back to the host until the caller does.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import residuals as R
+
+_EPS = 1e-9
+
+
+class BAProblem(NamedTuple):
+    """Fixed-capacity bundle adjustment problem (padded; see masks)."""
+    T_cw: torch.Tensor       # (C,4,4) camera poses (world->cam)
+    cam_opt: torch.Tensor    # (C,) bool: optimize this camera (False = fixed/pad)
+    cam_valid: torch.Tensor  # (C,) bool: camera slot is real
+    X: torch.Tensor          # (L,3) landmark positions
+    lm_valid: torch.Tensor   # (L,) bool
+    obs_cam: torch.Tensor    # (O,) int camera index
+    obs_lm: torch.Tensor     # (O,) int landmark index
+    obs_uv: torch.Tensor     # (O,2) observations (undistorted pixels)
+    obs_sigma2: torch.Tensor # (O,) variance (scale^2 of the octave)
+    obs_mask: torch.Tensor   # (O,) bool
+
+    def to(self, device) -> "BAProblem":
+        return BAProblem(*(t.to(device) for t in self))
+
+
+class BAResult(NamedTuple):
+    T_cw: torch.Tensor
+    X: torch.Tensor
+    obs_inlier: torch.Tensor
+    cost: torch.Tensor
+
+
+def _rho(c2, thr):
+    """Huber robust cost."""
+    return torch.where(c2 <= thr, c2, 2.0 * torch.sqrt(thr * torch.clamp(c2, min=0.0)) - thr)
+
+
+def mono_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
+    """Residuals obs - proj(T X) of every observation: (r (O,2), ok (O,),
+    camera-frame points (O,3))."""
+    Tc = T_cw[obs_cam]
+    xc = torch.einsum("oij,oj->oi", Tc[:, :3, :3], X[obs_lm]) + Tc[:, :3, 3]
+    uv, _, _ = cam.project(xc)
+    ok = xc[:, 2] > _EPS
+    return torch.where(ok[:, None], obs_uv - uv, torch.zeros_like(uv)), ok, xc
+
+
+def mono_residuals_and_jacobians(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
+    """Residuals (O,2), ok (O,), and their Jacobians with respect to the
+    left increment exp(xi) T of the observing camera (O,2,6) and to the
+    landmark position (O,2,3); zero where the point is behind the camera."""
+    r, ok, xc = mono_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv)
+    x, y, z = xc[:, 0], xc[:, 1], torch.where(ok, xc[:, 2], torch.ones_like(xc[:, 2]))
+    zero = torch.zeros_like(z)
+    # d(uv)/d(xc); the residual's Jacobian is its negative
+    P = torch.stack([torch.stack([cam.fx / z, zero, -cam.fx * x / (z * z)], -1),
+                     torch.stack([zero, cam.fy / z, -cam.fy * y / (z * z)], -1)], -2)
+    P = P * ok[:, None, None]
+    # d(exp(xi) xc)/d(xi) at 0 = [-hat(xc) | I]
+    Jc = torch.cat([P @ _hat(xc), -P], -1)
+    Jl = -P @ T_cw[obs_cam][:, :3, :3]
+    return r, ok, Jc, Jl
+
+
+def _hat(w):
+    x, y, z = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], -1), torch.stack([z, zero, -x], -1),
+                        torch.stack([-y, x, zero], -1)], -2)
+
+
+def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10):
+    """Dense-Schur local BA for a perspective mono camera.  Returns
+    fn(problem: BAProblem) -> BAResult on the problem's device, with the
+    reference's two-phase schedule: ``first_iters`` LM iterations, outlier
+    rejection (observations beyond the chi2 gate are dropped),
+    ``second_iters`` more."""
+    if cam.model_name != "perspective":
+        raise NotImplementedError("only the perspective local BA is ported")
+    chi2_thr = R.CHI2_2D
+
+    def lm_phase(p: BAProblem, active: torch.Tensor, iters: int):
+        dev, dt = p.T_cw.device, p.T_cw.dtype
+        C, L = p.T_cw.shape[0], p.X.shape[0]
+        oc, ol = p.obs_cam.to(torch.int64), p.obs_lm.to(torch.int64)
+        inv_s2 = 1.0 / torch.clamp(p.obs_sigma2, min=1e-12)
+        obs_ok_static = active & p.obs_mask & p.cam_valid[oc] & p.lm_valid[ol]
+        cam_free = p.cam_opt & p.cam_valid
+        m6 = cam_free.repeat_interleave(6).to(dt)
+        eyec = torch.eye(6, dtype=dt, device=dev)
+        eyel = torch.eye(3, dtype=dt, device=dev)
+        diag = torch.arange(C, device=dev)
+        pair = ol * C + oc
+
+        def cost_of(T, X):
+            r, ok, _ = mono_residuals(cam, T, X, oc, ol, p.obs_uv)
+            c2 = (r * r).sum(-1) * inv_s2
+            w = (obs_ok_static & ok).to(dt)
+            return (_rho(c2, chi2_thr) * w).sum(), c2, ok
+
+        def add(n, idx, blocks):
+            return torch.zeros((n,) + blocks.shape[1:], dtype=dt, device=dev).index_add_(
+                0, idx, blocks)
+
+        T, X = p.T_cw, p.X
+        lam = torch.tensor(1e-4, dtype=dt, device=dev)
+        cost = torch.zeros((), dtype=dt, device=dev)
+        for _ in range(iters):
+            r, ok, Jc, Jl = mono_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
+            c2 = (r * r).sum(-1) * inv_s2
+            w = R.huber_weight(c2, chi2_thr) * inv_s2 * (obs_ok_static & ok).to(dt)
+            # fixed cameras keep their Jacobians out of the system (they
+            # still constrain the landmarks)
+            Jc = Jc * cam_free[oc][:, None, None]
+            Hcc = add(C, oc, torch.einsum("odi,odj,o->oij", Jc, Jc, w))
+            Hll = add(L, ol, torch.einsum("odi,odj,o->oij", Jl, Jl, w))
+            gc = add(C, oc, torch.einsum("odi,od,o->oi", Jc, r, w))
+            gl = add(L, ol, torch.einsum("odi,od,o->oi", Jl, r, w))
+            Wt = add(L * C, pair, torch.einsum("odi,odj,o->oij", Jc, Jl, w)).view(L, C, 6, 3)
+            # damping (LM, multiplicative on block diagonals)
+            Hcc_d = Hcc + lam * Hcc * eyec + 1e-8 * eyec
+            Hll_d = Hll + lam * Hll * eyel + 1e-8 * eyel
+            Hll_d = torch.where(p.lm_valid[:, None, None], Hll_d, eyel)
+            Hll_inv = torch.linalg.inv_ex(Hll_d).inverse
+
+            Y = torch.einsum("lcik,lkm->lcim", Wt, Hll_inv)
+            Yr = Y.permute(1, 2, 0, 3).reshape(C * 6, L * 3)
+            Wr = Wt.permute(1, 2, 0, 3).reshape(C * 6, L * 3)
+            S = -(Yr @ Wr.T)
+            S4 = S.view(C, 6, C, 6)
+            S4[diag, :, diag, :] += Hcc_d
+            v = (-gc + torch.einsum("lcim,lm->ci", Y, gl)).reshape(C * 6)
+            # mask fixed/invalid cameras out of the system
+            S = S * m6[:, None] * m6[None, :] + torch.diag(1.0 - m6)
+            dxc = torch.linalg.solve_ex(S, v * m6).result.reshape(C, 6)
+            dxl = -torch.einsum("lkm,lm->lk", Hll_inv,
+                                gl + torch.einsum("lcik,ci->lk", Wt, dxc))
+            dxl = dxl * p.lm_valid[:, None]
+
+            T_new = R.perturb_pose(dxc * cam_free[:, None], T)
+            X_new = X + dxl
+            cost_new, _, _ = cost_of(T_new, X_new)
+            cost_old, _, _ = cost_of(T, X)
+            # a diverged step can produce non-finite poses/points whose
+            # residuals are all masked (cost 0): never accept one
+            finite = torch.isfinite(dxc).all() & torch.isfinite(dxl).all()
+            accept = (cost_new < cost_old) & finite
+            T = torch.where(accept, T_new, T)
+            X = torch.where(accept, X_new, X)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
+            cost = torch.minimum(cost_new, cost_old)
+        _, c2, ok = cost_of(T, X)
+        return T, X, c2, ok, cost
+
+    def optimize(p: BAProblem) -> BAResult:
+        active = p.obs_mask
+        T, X, c2, ok, _ = lm_phase(p, active, first_iters)
+        active = active & ok & (c2 < chi2_thr)
+        T, X, c2, ok, cost = lm_phase(p._replace(T_cw=T, X=X), active, second_iters)
+        return BAResult(T, X, active & ok & (c2 < chi2_thr), cost)
+
+    return optimize

@@ -7,7 +7,13 @@
   raises instead of running on the CPU;
 * kernel wrappers take the plain version only for CPU tensors and count no
   launch for them; other devices raise;
-* the package carries its own descriptor patterns, and a missing one raises.
+* the package carries its own descriptor patterns, and a missing one raises;
+* the System refuses what is not ported (loop detection, which the config
+  enables by default) instead of ignoring it;
+* no module names a path outside the package (its native source and build
+  live inside it), and a failed native build raises instead of falling
+  back to Python;
+* ``Config.from_dict`` needs no PyYAML.
 """
 import ast
 import os
@@ -21,10 +27,13 @@ import torch
 import openvslam_tpu_torch
 from openvslam_tpu_torch import kernels
 from openvslam_tpu_torch.camera import Perspective
+from openvslam_tpu_torch.config import Config
 from openvslam_tpu_torch.models.frame_step import FrameStep
 from openvslam_tpu_torch.models.frontend import OrbFrontend
 from openvslam_tpu_torch.models.track_step import TrackStep
 from openvslam_tpu_torch.ops import fast, match, orb, pose_lm
+from openvslam_tpu_torch.system import System
+from openvslam_tpu_torch.utils import native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(openvslam_tpu_torch.__file__))
@@ -59,10 +68,12 @@ def test_no_jax_imports_in_port():
 
 def test_import_loads_no_jax_and_builds_nothing():
     code = ("import sys, openvslam_tpu_torch, openvslam_tpu_torch.models.track_step, "
-            "openvslam_tpu_torch.convert, openvslam_tpu_torch.kernels as k, torch\n"
+            "openvslam_tpu_torch.convert, openvslam_tpu_torch.system, "
+            "openvslam_tpu_torch.kernels as k, openvslam_tpu_torch.utils.native as nat, torch\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'openvslam_tpu.')) "
             "or m == 'openvslam_tpu' for m in sys.modules), sorted(sys.modules)\n"
-            "assert not k._libs\n"
+            "assert not k._libs and nat._lib is None\n"
+            "assert 'yaml' not in sys.modules\n"
             "assert torch.backends.cudnn.allow_tf32 is False\n"
             "assert torch.backends.cuda.matmul.allow_tf32 is False\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -110,3 +121,77 @@ def test_pattern_assets_are_the_ports_own(monkeypatch, tmp_path):
             orb.get_pattern_np("cv")
     finally:
         orb.get_pattern_np.cache_clear()
+
+
+def _small_config(**extra):
+    return {"Camera": {"name": "tiny", "setup": "monocular", "model": "perspective",
+                       "fx": 100.0, "fy": 100.0, "cx": 32.0, "cy": 24.0, "cols": 64, "rows": 48},
+            "Feature": {"max_num_keypts": 64, "num_levels": 2},
+            "LoopDetector": {"enabled": False}, **extra}
+
+
+def test_system_refuses_missing_cuda_and_unported_features(monkeypatch):
+    with pytest.raises(NotImplementedError, match="LoopDetector"):
+        System(Config.from_dict(_small_config(LoopDetector={"enabled": True})), device="cpu")
+    default = {k: v for k, v in _small_config().items() if k != "LoopDetector"}
+    with pytest.raises(NotImplementedError, match="LoopDetector"):
+        System(Config.from_dict(default), device="cpu")
+    cam = dict(_small_config()["Camera"], setup="stereo", focal_x_baseline=10.0)
+    with pytest.raises(NotImplementedError, match="monocular"):
+        System(Config.from_dict(_small_config(Camera=cam)), device="cpu")
+    assert System(Config.from_dict(_small_config()), device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System(Config.from_dict(_small_config()))
+
+
+def test_port_names_no_path_outside_its_package():
+    """Every absolute path a port module holds (source, build and asset
+    locations) lies inside the package, and no source spells a path into
+    the JAX package's tree (``native/``, ``openvslam_tpu/``)."""
+    import importlib
+    import pkgutil
+
+    held = 0
+    for info in pkgutil.walk_packages(openvslam_tpu_torch.__path__, "openvslam_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for name, value in vars(mod).items():
+            for v in value.values() if isinstance(value, dict) else [value]:
+                if isinstance(v, str) and os.path.isabs(v):
+                    held += 1
+                    real = os.path.realpath(v)
+                    assert real == PKG or real.startswith(PKG + os.sep), (info.name, name, v)
+    assert held >= 5        # kernels' csrc and build, native's source and build, assets
+    for path in _port_sources()[1:]:
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                v = node.value
+                assert v != "native" and "native/" not in v and ".." not in v.split("/"), (path, v)
+    assert native.SRC.startswith(PKG) and native.lib_path().startswith(PKG)
+
+
+def test_native_build_fails_loudly(monkeypatch, tmp_path):
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-compiler"))
+    descs = np.zeros((3, 8), np.uint32)
+    with pytest.raises(RuntimeError, match="native build"):
+        native.min_median_hamming(descs)
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "CXX", "g++")
+    monkeypatch.setattr(native, "SRC", str(bad))
+    with pytest.raises(RuntimeError, match="native build"):
+        native.min_median_hamming(descs)
+    assert native._lib is None and not list(tmp_path.glob("*.so"))
+
+
+def test_config_needs_no_yaml(tmp_path):
+    code = ("import sys\nsys.modules['yaml'] = None\n"
+            "from openvslam_tpu_torch.config import Config\n"
+            f"cfg = Config.from_dict({_small_config()!r})\n"
+            "assert cfg.camera.cols == 64 and not cfg.loop.enabled\n"
+            "try:\n    Config.from_yaml('missing.yaml')\nexcept ImportError:\n    pass\n"
+            "else:\n    raise SystemExit('from_yaml ran without PyYAML')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=tmp_path, env=env, timeout=120)
