@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .camera.base import make_camera_from_config
+from .data.bow import BowDatabase
 from .data.map_database import MapDatabase
 from .device import resolve_device
 from .models.frontend import OrbFrontend
@@ -96,3 +97,29 @@ def map_database_from_state(state: Mapping[str, Any]) -> MapDatabase:
     for k, v in state.items():
         setattr(db, k, copy.deepcopy(v))
     return db
+
+
+def bow_state(bow_db) -> dict:
+    """A BoW database's contents (the JAX package's or the port's): the
+    per-keyframe word ids and tf-idf vectors and the inverted index's
+    postings, as deep copies."""
+    inv = bow_db.inverted
+    return {"kf_words": copy.deepcopy(dict(bow_db.kf_words)),
+            "kf_bow": copy.deepcopy(dict(bow_db.kf_bow)),
+            "inverted": {k: copy.deepcopy(getattr(inv, k))
+                         for k in ("num_words", "_w", "_kf", "_alive", "_n", "_kf_rows")}}
+
+
+def bow_database_from_state(state: Mapping[str, Any], vocab, map_db, device="cpu") -> BowDatabase:
+    """The port's BowDatabase over ``vocab`` and ``map_db`` holding ``state``
+    (see ``bow_state``)."""
+    bow_db = BowDatabase(vocab, map_db, device=resolve_device(device))
+    if int(state["inverted"]["num_words"]) != vocab.num_words:
+        raise ValueError(f"BoW state has {state['inverted']['num_words']} words, "
+                         f"the vocabulary {vocab.num_words}")
+    bow_db.kf_words = copy.deepcopy(dict(state["kf_words"]))
+    bow_db.kf_bow = copy.deepcopy(dict(state["kf_bow"]))
+    for k, v in state["inverted"].items():
+        setattr(bow_db.inverted, k, copy.deepcopy(v))
+    bow_db.inverted._csr = None
+    return bow_db

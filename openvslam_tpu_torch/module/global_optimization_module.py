@@ -1,0 +1,438 @@
+"""Global optimization module, synchronous (counterpart of
+``openvslam_tpu/module/global_optimization_module.py``; ref
+``global_optimization_module.*``): BoW registration of every keyframe, loop
+detection -> Sim3 validation -> loop correction (pose and landmark
+propagation, duplicate merge) -> Sim3 pose graph -> global BA.
+
+The loop pipeline runs inline in ``queue_keyframe``, called by the mapping
+module after each keyframe (the JAX package's synchronous mode).  Not
+ported here: the loop worker thread, the background global BA and the
+compile-bucket prewarming of the async mode.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Set
+
+import numpy as np
+import torch
+
+from ..data.bow import BowDatabase, default_vocabulary, load_vocabulary
+from ..device import resolve_device
+from ..optimize.ba import BAProblem, make_global_ba
+from ..optimize.pose_graph import PoseGraphProblem, make_pose_graph_optimizer
+from ..utils.log import get_logger
+from .loop_detector import LoopDetector
+from .relocalizer import Relocalizer
+
+_log = get_logger("global_opt")
+
+COVIS_GRAPH_EDGE_WEIGHT = 100   # reference: covisibility edges with weight >= 100
+GLOBAL_BA_ITERS = 60            # after a loop correction (see correct_loop)
+GLOBAL_BA_CG_ITERS = 30
+
+
+class GlobalOptimizationModule:
+    def __init__(self, cfg, cam, map_db, vocab_path: Optional[str] = None,
+                 fix_scale: bool = False, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.cam = cam
+        self.db = map_db
+        if vocab_path is None or vocab_path == "default":
+            vocab = default_vocabulary(pattern=cfg.feature.descriptor_pattern)
+        else:
+            vocab = load_vocabulary(vocab_path)
+        self.bow_db = BowDatabase(vocab, map_db, device=self.device)
+        self.loop_detector = LoopDetector(cfg, cam, map_db, self.bow_db, fix_scale,
+                                          device=self.device)
+        self.relocalizer = Relocalizer(cfg, cam, map_db, self.bow_db, device=self.device)
+        # metric maps lock every vertex's Sim3 scale in the pose graph, as
+        # the reference's graph_optimizer does via fix_scale
+        self.pose_graph_opt = make_pose_graph_optimizer(iters=20, cg_iters=60,
+                                                        fix_scale=fix_scale)
+        self.global_ba = make_global_ba(cam, iters=GLOBAL_BA_ITERS, cg_iters=GLOBAL_BA_CG_ITERS)
+        self.num_loops_closed = 0
+        self.abort_global_ba = False
+        self.last_loop_kf = -1
+        # loop-detection event log: ("cand"|"valid", kf, cand) per stage
+        self.loop_events: list = []
+        self.loop_enabled = cfg.loop.enabled
+        self.loop_checks_run = 0
+        self.loop_cands_seen = 0
+        self.loop_validations = 0
+        nl = cfg.feature.num_levels
+        sf = cfg.feature.scale_factor
+        self.sigma2 = np.array([sf ** (2 * l) for l in range(nl)], np.float32)
+        # host seconds per stage: "check" (detect + prefilter + validations
+        # of one keyframe), "validate", "pose_graph", "global_ba", each a list
+        self.timings: Dict[str, list] = {"check": [], "validate": [], "pose_graph": [],
+                                         "global_ba": []}
+
+    def reset(self, map_db):
+        """Start over on ``map_db``: an empty BoW database and no loop state."""
+        self.db = map_db
+        self.bow_db.map_db = map_db
+        self.bow_db.clear()
+        self.loop_detector.db = map_db
+        self.loop_detector.cont_groups = []
+        self.relocalizer.db = map_db
+        self.relocalizer.last_reloc_kf = -1
+        self.last_loop_kf = -1
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def queue_keyframe(self, kf: int):
+        """Called by the mapping module for every new keyframe: register its
+        BoW vector, then run the loop pipeline inline."""
+        self._register_bow(kf)
+        if self.loop_enabled:
+            self._loop_check(kf)
+
+    def _register_bow(self, kf: int):
+        """Register kf in the BoW database and drop the entries of keyframes
+        culled since the last call."""
+        db = self.db
+        for k in [k for k in self.bow_db.kf_words if not db.kf_valid[k]]:
+            self.bow_db.remove_keyframe(k)
+        if kf in self.bow_db.kf_words:
+            return   # already registered (snapshot() registers on demand)
+        self.bow_db.add_keyframe(kf, self.bow_db.compute_words(db.kf_desc_i8[kf],
+                                                               db.kf_kpt_valid[kf]))
+
+    def _kf_ok(self, kf: int) -> bool:
+        db = self.db
+        return 0 <= kf < db.n_kfs and bool(db.kf_valid[kf])
+
+    def _loop_check(self, kf: int):
+        """Loop pipeline for one keyframe: detect -> Sim3 validate -> correct."""
+        if kf - self.last_loop_kf < 10:   # cooldown (ref: 10 keyframes)
+            return
+        if not self._kf_ok(kf):
+            return
+        t0 = time.perf_counter()
+        try:
+            self._check(kf)
+        finally:
+            self.timings["check"].append(time.perf_counter() - t0)
+
+    def _check(self, kf: int):
+        candidates = self.loop_detector.detect(kf)
+        self.loop_checks_run += 1
+        if not candidates:
+            return
+        self.loop_cands_seen += len(candidates)
+        _log.info("loop candidates for keyframe %d: %s", kf, candidates)
+        pairs = [(c, self.loop_detector.snapshot(kf, c)) for c in candidates
+                 if self._kf_ok(kf) and self._kf_ok(c)]
+        if not pairs:
+            return
+        counts = self.loop_detector.prefilter_counts([s for _, s in pairs])
+        for (cand, snap), n_first in zip(pairs, counts):
+            self.loop_events.append(("cand", kf, cand))
+            if n_first < self.cfg.loop.min_num_bow_matches:
+                continue
+            t0 = time.perf_counter()
+            out = self.loop_detector.validate_snapshot(
+                snap, min_inliers=self.cfg.loop.min_num_valid_obs)
+            self.timings["validate"].append(time.perf_counter() - t0)
+            if out is None:
+                continue
+            self.loop_events.append(("valid", kf, cand))
+            self.loop_validations += 1
+            R, t, s, _, _, lms_k, lms_c = out
+            _log.info("loop detected: keyframe %d <-> %d (scale %.3f); correcting",
+                      kf, cand, float(s))
+            self.correct_loop(kf, cand, (R, t, s), lms_k, lms_c)
+            self.last_loop_kf = kf
+            self.num_loops_closed += 1
+            _log.info("loop %d closed (pose graph + global BA)", self.num_loops_closed)
+            return
+
+    # ------------------------------------------------------------------
+    def correct_loop(self, kf: int, cand: int, g_cur_from_cand, lms_k, lms_c, group=None):
+        """Propagate the validated Sim3 through kf's covisibility group
+        (``group`` overrides it), merge the matched duplicate landmarks, add
+        the loop edge, then optimize the pose graph and run the global BA.
+        The propagation is host numpy: a 3x3 compose per group keyframe."""
+        db = self.db
+        R, t, s = g_cur_from_cand
+        R = np.asarray(R, np.float64)
+        t = np.asarray(t, np.float64)
+        s = float(s)
+
+        def _comp(a, b):
+            (Ra, ta, sa), (Rb, tb, sb) = a, b
+            return Ra @ Rb, sa * (Ra @ tb) + ta, sa * sb
+
+        def _inv(g):
+            Rg, tg, sg = g
+            si = 1.0 / sg
+            return Rg.T, -si * (Rg.T @ tg), si
+
+        # corrected Sim3 pose of the current KF: S_cw = S(cur <- cand) T_cand_w
+        T_cand = np.asarray(db.kf_pose_cw[cand], np.float64)
+        g_corr_cur = _comp((R, t, s), (T_cand[:3, :3], T_cand[:3, 3], 1.0))
+        if group is None:
+            group = [kf] + db.get_top_covisible(kf, 30)
+        T_cur_old_inv = np.linalg.inv(np.asarray(db.kf_pose_cw[kf], np.float64))
+        corrected: Dict[int, tuple] = {}
+        for k2 in group:
+            rel = np.asarray(db.kf_pose_cw[k2], np.float64) @ T_cur_old_inv   # SE3 k <- cur
+            corrected[k2] = _comp((rel[:3, :3], rel[:3, 3], 1.0), g_corr_cur)
+
+        # correct the group's landmarks (through their observing KF) and poses
+        moved: Set[int] = set()
+        for k2 in group:
+            T_old = np.asarray(db.kf_pose_cw[k2], np.float64)
+            g_new = corrected[k2]
+            Ri, ti, si = _inv(g_new)
+            arr = db.kf_lm_idx[k2]
+            lms = [l for l in arr[arr >= 0] if db.lm_valid[l] and l not in moved]
+            if lms:
+                X = db.lm_pos[np.array(lms)].astype(np.float64)
+                Xc = (T_old[:3, :3] @ X.T).T + T_old[:3, 3]
+                db.lm_pos[np.array(lms)] = (si * (Xc @ Ri.T) + ti).astype(np.float32)
+                moved.update(int(l) for l in lms)
+            Rn, tn, sn = g_new
+            Tn = np.eye(4)
+            Tn[:3, :3] = Rn
+            Tn[:3, 3] = tn / sn     # ref Sim3 -> SE3 rescale
+            db.kf_pose_cw[k2] = Tn.astype(np.float32)
+        db.geom_version += 1
+
+        # merge the directly matched duplicate landmark pairs (keep the older,
+        # loop-side landmark)
+        for lk, lc in zip(lms_k, lms_c):
+            lk, lc = int(lk), int(lc)
+            if lk != lc and db.lm_valid[lk] and db.lm_valid[lc]:
+                db.replace_landmark(lk, lc)
+        for k2 in group:
+            db.update_connections(k2, set_parent=False)
+
+        db.add_loop_edge(kf, cand)
+        t0 = time.perf_counter()
+        self._optimize_pose_graph(fixed_kf=cand)
+        self._sync()
+        self.timings["pose_graph"].append(time.perf_counter() - t0)
+        # 60 LM steps, not the reference's 10: each takes an inexact
+        # (PCG-truncated) Schur step where g2o's takes an exact one
+        t0 = time.perf_counter()
+        self.run_global_ba(iters=GLOBAL_BA_ITERS)
+        self._sync()
+        self.timings["global_ba"].append(time.perf_counter() - t0)
+        db.version += 1
+
+    # ------------------------------------------------------------------
+    def build_pose_graph(self, fixed_kf: int):
+        """The pose-graph problem over every valid keyframe (None below 3):
+        spanning-tree, loop and strong covisibility edges, each measured from
+        the current poses.  Returns (problem as numpy arrays, index, T_old)."""
+        db = self.db
+        ids = db.valid_kf_ids()
+        n = len(ids)
+        if n < 3:
+            return None
+        index = {int(k): i for i, k in enumerate(ids)}
+        N = max(8, 1 << int(np.ceil(np.log2(n))))
+        Rn = np.tile(np.eye(3, dtype=np.float32), (N, 1, 1))
+        tn = np.zeros((N, 3), np.float32)
+        sn = np.ones(N, np.float32)
+        node_valid = np.zeros(N, bool)
+        node_fixed = np.zeros(N, bool)
+        T_old = {}
+        for k, i in index.items():
+            T = db.kf_pose_cw[k]
+            T_old[k] = T.copy()
+            Rn[i] = T[:3, :3]
+            tn[i] = T[:3, 3]
+            node_valid[i] = True
+        node_fixed[index[int(fixed_kf)]] = True
+
+        edges = set()
+        for k in ids:
+            k = int(k)
+            p = int(db.parent[k])
+            if p >= 0 and p in index:
+                edges.add((min(k, p), max(k, p)))
+            for le in db.loop_edges[k]:
+                if le in index:
+                    edges.add((min(k, le), max(k, le)))
+            for nb, w in db.covis[k].items():
+                if w >= COVIS_GRAPH_EDGE_WEIGHT and nb in index:
+                    edges.add((min(k, nb), max(k, nb)))
+        edges = sorted(edges)
+        E = max(4 * N, 1 << int(np.ceil(np.log2(max(len(edges), 2)))))
+        e_i = np.zeros(E, np.int32)
+        e_j = np.zeros(E, np.int32)
+        e_R = np.tile(np.eye(3, dtype=np.float32), (E, 1, 1))
+        e_t = np.zeros((E, 3), np.float32)
+        e_s = np.ones(E, np.float32)
+        e_mask = np.zeros(E, bool)
+        if edges:
+            ne = len(edges)
+            ka = np.array([a for a, _ in edges])
+            kb = np.array([b for _, b in edges])
+            Ti, Tj = db.kf_pose_cw[ka], db.kf_pose_cw[kb]
+            Ri, ti = Ti[:, :3, :3], Ti[:, :3, 3]
+            Rj, tj = Tj[:, :3, :3], Tj[:, :3, 3]
+            Rrel = np.einsum("nij,nkj->nik", Rj, Ri)      # Rj Ri^T
+            e_i[:ne] = [index[int(a)] for a in ka]
+            e_j[:ne] = [index[int(b)] for b in kb]
+            e_R[:ne] = Rrel
+            e_t[:ne] = tj - np.einsum("nij,nj->ni", Rrel, ti)
+            e_mask[:ne] = True
+        prob = (Rn, tn, sn, node_valid, node_fixed, e_i, e_j, e_R, e_t, e_s, e_mask)
+        return prob, index, T_old
+
+    def _optimize_pose_graph(self, fixed_kf: int):
+        built = self.build_pose_graph(fixed_kf)
+        if built is None:
+            return
+        prob_np, index, T_old = built
+        db = self.db
+        prob = PoseGraphProblem(*(torch.as_tensor(a, device=self.device) for a in prob_np))
+        R_o, t_o, s_o, _ = (x.cpu().numpy() for x in self.pose_graph_opt(prob))
+        N = len(prob_np[0])
+        # write back the poses (Sim3 -> SE3 rescale) and move every landmark
+        # through its reference keyframe's correction (one batched pass):
+        #   Xc = R_old X + t_old;  Xw' = (1/s) R_new^T (Xc - t_new)
+        node_of = np.full(db.n_kfs, -1, np.int32)
+        R_old_n = np.zeros((N, 3, 3), np.float32)
+        t_old_n = np.zeros((N, 3), np.float32)
+        for k, i in index.items():
+            node_of[k] = i
+            R_old_n[i] = T_old[k][:3, :3]
+            t_old_n[i] = T_old[k][:3, 3]
+        lms = db.valid_lm_ids()
+        refs = db.lm_ref_kf[lms]
+        ri = np.where(refs >= 0, node_of[np.clip(refs, 0, db.n_kfs - 1)], -1)
+        keep = ri >= 0
+        lms, ri = lms[keep], ri[keep]
+        if len(lms):
+            Xc = np.einsum("nij,nj->ni", R_old_n[ri], db.lm_pos[lms]) + t_old_n[ri]
+            Xw = np.einsum("nji,nj->ni", R_o[ri], Xc - t_o[ri]) \
+                / np.maximum(s_o[ri], 1e-9)[:, None]
+            db.lm_pos[lms] = Xw.astype(np.float32)
+        for k, i in index.items():
+            T = np.eye(4, dtype=np.float32)
+            T[:3, :3] = R_o[i]
+            T[:3, 3] = t_o[i] / max(s_o[i], 1e-9)
+            db.kf_pose_cw[k] = T
+        db.geom_version += 1
+
+    # ------------------------------------------------------------------
+    def loop_BA_is_running(self) -> bool:
+        """The global BA runs inline in this synchronous module."""
+        return False
+
+    def run_global_ba(self, iters: int = GLOBAL_BA_ITERS):
+        """Full-map BA after a loop correction (ref loop_bundle_adjuster),
+        synchronous."""
+        if self.abort_global_ba:
+            self.abort_global_ba = False
+            return
+        built = self._build_global_ba()
+        if built is None:
+            return
+        _log.info("global BA: %d keyframes, %d landmarks, %d iters",
+                  len(built["cam_index"]), len(built["lm_index"]), iters)
+        ba = self.global_ba if iters == GLOBAL_BA_ITERS else make_global_ba(
+            self.cam, iters=iters, cg_iters=GLOBAL_BA_CG_ITERS)
+        res = ba(BAProblem(*(torch.as_tensor(a, device=self.device) for a in built["prob"])))
+        T_new, X_new = res.T_cw.cpu().numpy(), res.X.cpu().numpy()
+        apply_ba_writeback(self.db, built["cam_index"], built["lm_index"], built["cam_opt"],
+                           T_new, X_new)
+
+    def _build_global_ba(self):
+        """The global BA problem over every valid keyframe and landmark as
+        numpy arrays, padded to power-of-two buckets (None when the map is
+        too small)."""
+        db = self.db
+        kf_ids = db.valid_kf_ids()
+        lm_ids = db.valid_lm_ids()
+        n_c, n_l = len(kf_ids), len(lm_ids)
+        if n_c < 3 or n_l < 30:
+            return None
+        C = max(8, 1 << int(np.ceil(np.log2(n_c))))
+        L = max(64, 1 << int(np.ceil(np.log2(n_l))))
+        cam_index = {int(k): i for i, k in enumerate(kf_ids)}
+        lm_index = {int(l): i for i, l in enumerate(lm_ids)}
+        n_obs_total = int(db.lm_num_obs[lm_ids].sum())
+        O = max(256, 1 << int(np.ceil(np.log2(max(n_obs_total, 2)))))
+
+        T = np.tile(np.eye(4, dtype=np.float32), (C, 1, 1))
+        cam_opt = np.zeros(C, bool)
+        cam_valid = np.zeros(C, bool)
+        for k, i in cam_index.items():
+            T[i] = db.kf_pose_cw[k]
+            cam_valid[i] = True
+            cam_opt[i] = k != db.origin_kf
+        X = np.zeros((L, 3), np.float32)
+        lm_valid = np.zeros(L, bool)
+        X[:n_l] = db.lm_pos[lm_ids]
+        lm_valid[:n_l] = True
+        oc = np.zeros(O, np.int32)
+        ol = np.zeros(O, np.int32)
+        ouv = np.zeros((O, 2), np.float32)
+        osg = np.ones(O, np.float32)
+        om = np.zeros(O, bool)
+        lm_lookup = np.full(db.n_lms, -1, np.int32)
+        lm_lookup[lm_ids] = np.arange(n_l, dtype=np.int32)
+        cam_lookup = np.full(db.n_kfs, -1, np.int32)
+        cam_lookup[kf_ids] = np.arange(n_c, dtype=np.int32)
+        t_lm, t_kf, _, t_u, t_v, _, t_lvl = db.observation_rows()
+        ol_all = lm_lookup[np.clip(t_lm, 0, db.n_lms - 1)]
+        oc_all = cam_lookup[np.clip(t_kf, 0, db.n_kfs - 1)]
+        rows = np.where((t_lm >= 0) & (ol_all >= 0) & (oc_all >= 0))[0][:O]
+        n_obs = len(rows)
+        oc[:n_obs] = oc_all[rows]
+        ol[:n_obs] = ol_all[rows]
+        ouv[:n_obs, 0] = t_u[rows]
+        ouv[:n_obs, 1] = t_v[rows]
+        osg[:n_obs] = self.sigma2[np.clip(t_lvl[rows], 0, len(self.sigma2) - 1)]
+        om[:n_obs] = True
+        prob = (T, cam_opt, cam_valid, X, lm_valid, oc, ol, ouv, osg, om)
+        return {"prob": prob, "cam_index": cam_index, "lm_index": lm_index, "cam_opt": cam_opt}
+
+
+def apply_ba_writeback(db, cam_index, lm_index, cam_opt, T_new, X_new):
+    """Write full-map BA results back onto the map.  Keyframes and landmarks
+    created after the snapshot move with their nearest snapshotted
+    spanning-tree ancestor / reference keyframe (ref
+    global_optimization_module::run_loop_BA's born-during pass)."""
+    T_pre = {int(k): db.kf_pose_cw[int(k)].copy() for k in db.valid_kf_ids()}
+    new_pose = {}
+    for k, i in cam_index.items():
+        if db.kf_valid[k]:
+            new_pose[k] = T_new[i] if cam_opt[i] else db.kf_pose_cw[k]
+    for k in db.valid_kf_ids():
+        k = int(k)
+        if k in cam_index:
+            continue
+        anc = k
+        hops = 0
+        while anc not in cam_index and anc >= 0 and hops < 256:
+            anc = int(db.parent[anc])
+            hops += 1
+        if anc not in cam_index:
+            continue
+        rel = T_pre[k] @ np.linalg.inv(T_pre[anc])
+        new_pose[k] = (rel @ new_pose.get(anc, T_pre[anc])).astype(np.float32)
+    for lm in db.valid_lm_ids():
+        lm = int(lm)
+        if lm in lm_index:
+            db.lm_pos[lm] = X_new[lm_index[lm]]
+            continue
+        ref = int(db.lm_ref_kf[lm])
+        if ref not in new_pose or ref not in T_pre:
+            continue
+        To, Tn = T_pre[ref], new_pose[ref]
+        Xc = To[:3, :3] @ db.lm_pos[lm] + To[:3, 3]
+        db.lm_pos[lm] = (Tn[:3, :3].T @ (Xc - Tn[:3, 3])).astype(np.float32)
+    for k, Tk in new_pose.items():
+        db.kf_pose_cw[k] = Tk.astype(np.float32)
+    db.geom_version += 1

@@ -2,7 +2,8 @@
 ``openvslam_tpu/module/mapping_module.py``; ref ``mapping_module.*``):
 keyframe insertion pipeline — store KF, cull fresh landmarks, triangulate
 new landmarks with covisible keyframes, fuse duplicates, local BA, cull
-redundant keyframes.
+redundant keyframes, hand-off to the global optimization module (BoW
+registration and loop detection).
 
 Host orchestration over the numpy map database; the numeric work runs on
 the module's device: epipolar-gated matching, checked triangulation,
@@ -10,9 +11,10 @@ projection fusion and the dense-Schur local BA.  The immutable keypoint
 columns of each keyframe are uploaded once and kept on the device.
 
 Not ported here: the stereo/RGB-D depth seeding, the multi-camera BA
-window, the hand-off to loop detection and the async pipeline's lock and
-stale-result discipline (there is no concurrent writer in synchronous
-mode).
+window and the async pipeline's lock and stale-result discipline (its
+``geom_version`` checks): in synchronous mode a loop correction runs inside
+``queue_keyframe``, after the keyframe's mapping has finished, so no
+correction can land while a mapping step is in flight.
 """
 from __future__ import annotations
 
@@ -37,11 +39,12 @@ class MappingModule:
     # local BA buckets: cameras (local + fixed), landmarks, observations
     C, L, O = 24, 4096, 16384
 
-    def __init__(self, cfg, cam, map_db, device="cuda"):
+    def __init__(self, cfg, cam, map_db, global_optimizer=None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cam = cam
         self.db = map_db
+        self.global_optimizer = global_optimizer
         nl = cfg.feature.num_levels
         sf = cfg.feature.scale_factor
         self.scale_factors = np.array([sf**l for l in range(nl)], np.float32)
@@ -65,6 +68,13 @@ class MappingModule:
         self.phase_s: dict = {}
         self._dev_kf: dict = {}         # kf -> device-resident keypoint columns
         self._scale_factors_dev = torch.from_numpy(self.scale_factors).to(self.device)
+
+    def reset(self, map_db):
+        """Start over on ``map_db``: no recent landmarks, no cached keyframe
+        columns."""
+        self.db = map_db
+        self.recent_lms = []
+        self._dev_kf.clear()
 
     def _phase(self, name: str, t0: float) -> float:
         now = time.perf_counter()
@@ -115,6 +125,9 @@ class MappingModule:
         self._run_local_ba(kf2)
         for lm in self.db.valid_lm_ids():
             self.recent_lms.append((int(lm), kf2))
+        if self.global_optimizer is not None:
+            self.global_optimizer.queue_keyframe(kf1)
+            self.global_optimizer.queue_keyframe(kf2)
 
     def insert_keyframe(self, frame) -> int:
         """Synchronous insertion: store + full mapping pipeline."""
@@ -145,7 +158,7 @@ class MappingModule:
 
     def process_keyframe(self, kf: int):
         """The reference's mapping-thread body: cull, create, fuse, local BA,
-        cull keyframes."""
+        cull keyframes, forward to global optimization."""
         t = time.perf_counter()
         n_lm0 = len(self.db.valid_lm_ids())
         self.remove_redundant_landmarks(kf)
@@ -157,7 +170,10 @@ class MappingModule:
         self._run_local_ba(kf)
         t = self._phase("local_ba", t)
         self.remove_redundant_keyframes(kf)
-        self._phase("cull_kfs", t)
+        t = self._phase("cull_kfs", t)
+        if self.global_optimizer is not None:
+            self.global_optimizer.queue_keyframe(kf)
+            self._phase("bow_loop", t)
         _log.debug("keyframe %d processed: landmarks %d -> %d", kf, n_lm0,
                    len(self.db.valid_lm_ids()))
 

@@ -1,17 +1,18 @@
 """Tracking module, mono (counterpart of ``openvslam_tpu/module/tracking_module.py``;
 ref ``tracking_module.*``): the per-frame state machine NotInitialized ->
-Tracking -> Lost.
+Tracking <-> Lost.
 
 Host-side control flow over the numpy map; the numeric work runs on the
 module's device: the two-view bootstrap, projection matching (kernel K2)
 and the pose-only LM (kernel K3) of the classic ladder, and the fused
 TrackStep (K1, K2, K3) on the common path.  The strategy order follows the
-reference: motion-model match -> (fallback) descriptor match vs the last
-frame -> local-map tracking -> keyframe-insertion decision.
+reference: motion-model match -> (fallback) BoW match vs the reference
+keyframe -> (fallback) descriptor match vs the last frame -> local-map
+tracking -> keyframe-insertion decision; a lost track relocalizes through
+the BoW database (``module/relocalizer.py``).
 
-Not ported here: relocalization and the BoW fallback (a lost track stays
-lost), stereo/RGB-D bootstrap, and the pipelined feed's multi-frame
-prediction (every dispatch here predicts one frame ahead).
+Not ported here: stereo/RGB-D bootstrap and the pipelined feed's
+multi-frame prediction (every dispatch here predicts one frame ahead).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from ..device import resolve_device
 from ..initialize.two_view import initialize_two_view
 from ..models import tracking_ops as TO
 from ..models.track_step import LastFrame, LocalMap, unpack_bits_host
+from ..ops import bow as bow_ops
 from ..ops import match as M
 from ..optimize.pose_optimizer import make_pose_optimizer
 from ..utils.log import get_logger
@@ -53,19 +55,13 @@ class TrackingModule:
     KF_PEAK_DECAY = 0.5
     INIT_SEED = 42
 
-    def __init__(self, cfg, cam, map_db, mapper, device="cuda"):
+    def __init__(self, cfg, cam, map_db, mapper, relocalizer=None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cam = cam
-        self.map_db = map_db
         self.mapper = mapper
-        self.state = TrackerState.NOT_INITIALIZED
-        self.init_frame: Optional[Frame] = None
-        self.last_frame: Optional[Frame] = None
-        self.velocity = np.eye(4, dtype=np.float32)   # T_cur @ inv(T_last)
-        self.ref_kf = -1
-        self.last_kf_frame_id = -1
-        self.num_tracked = 0
+        self.relocalizer = relocalizer
+        self.reset(map_db)
         self.gen = torch.Generator(device=self.device).manual_seed(self.INIT_SEED)
         nl = cfg.feature.num_levels
         sf = cfg.feature.scale_factor
@@ -75,13 +71,31 @@ class TrackingModule:
         self.pose_opt = make_pose_optimizer(cam, stereo=False)
         self.log_scale = float(np.log(sf))
         self.num_levels = nl
-        self._lm_cache = None      # device-resident local-map mirror
-        self._frame_dev = None     # (frame, device columns) of the frame in hand
-        self._peak_tracked = 0     # max inliers since the last keyframe
         # capacity-overflow accounting
         self.overflow: dict = {}
         # seconds spent reading fused-step results back to the host
         self.fetch_wait_s = 0.0
+
+    def reset(self, map_db):
+        """Start over on ``map_db``: uninitialized, with no motion model, no
+        cached local map and no relocalization bookkeeping."""
+        self.map_db = map_db
+        self.state = TrackerState.NOT_INITIALIZED
+        self.init_frame: Optional[Frame] = None
+        self.last_frame: Optional[Frame] = None
+        self.velocity = np.eye(4, dtype=np.float32)   # T_cur @ inv(T_last)
+        self.ref_kf = -1
+        self.last_kf_frame_id = -1
+        self.num_tracked = 0
+        self._lm_cache = None      # device-resident local-map mirror
+        self._frame_dev = None     # (frame, device columns) of the frame in hand
+        self._peak_tracked = 0     # max inliers since the last keyframe
+        self.frames_since_reloc = 1 << 30
+        # where and how fast tracking died, for the post-loss grace window
+        # of _relocalize
+        self._lost_at: Optional[int] = None
+        self._lost_center: Optional[np.ndarray] = None
+        self._lost_speed = 0.0
 
     def _count_overflow(self, what: str, n: int):
         if what not in self.overflow:
@@ -112,7 +126,7 @@ class TrackingModule:
         elif self.state == TrackerState.TRACKING:
             pose = self._track_frame(frame)
         else:
-            pose = None             # relocalization is not ported
+            pose = self._relocalize(frame)
         self.last_frame = frame
         return pose
 
@@ -306,8 +320,11 @@ class TrackingModule:
     def _rescue_acceptable(self, T_cur, T_pred, num_inl: int) -> bool:
         """A thin (12+) inlier set counts when the optimized pose agrees with
         the constant-velocity prediction: translation residual under
-        max(1.5x the frame displacement, 0.5), rotation under 10 degrees."""
-        if num_inl < 12:
+        max(1.5x the frame displacement, 0.5), rotation under 10 degrees.
+        Disabled inside the 30-frame post-relocalization window, where the
+        prediction is itself seeded from the relocalization that the
+        stricter gate distrusts."""
+        if num_inl < 12 or self.frames_since_reloc <= 30:
             return False
         d = np.linalg.inv(T_pred) @ T_cur
         dt = float(np.linalg.norm(d[:3, 3]))
@@ -316,9 +333,23 @@ class TrackingModule:
         return dt < max(1.5 * v_t, 0.5) and dr < np.deg2rad(10.0)
 
     def _go_lost(self, frame: Frame, why: str):
+        """Transition to Lost, recording the frame, camera centre and speed
+        at the loss for the post-loss grace window of _relocalize."""
         self.state = TrackerState.LOST
         _log.info("tracking lost at frame %d: %s", frame.frame_id, why)
         frame.pose_cw = None
+        self._lost_at = frame.frame_id
+        lp = self.last_frame.pose_cw if self.last_frame is not None else None
+        if lp is not None:
+            self._lost_center = (-lp[:3, :3].T @ lp[:3, 3]).astype(np.float64)
+            self._lost_speed = max(float(np.linalg.norm(self.velocity[:3, 3])), 1e-3)
+        else:
+            self._lost_center = None
+
+    def _lost_threshold(self) -> int:
+        """Local-map inliers below which tracking is lost: stricter for 30
+        frames after a relocalization."""
+        return LOST_THRESHOLD if self.frames_since_reloc > 30 else 50
 
     def _track_frame(self, frame: Frame):
         self._update_last_frame_landmarks()
@@ -329,12 +360,18 @@ class TrackingModule:
             frame.lm_idx[:] = -1
             nmatch = self._motion_match(frame, T_pred, radius=14.0)
         if nmatch < 20:
-            # fallback: unconstrained descriptor match against the last frame
+            # fallback 1 (ref bow_match_based_track): word-gated match against
+            # the reference keyframe's landmarks
+            nmatch = self._bow_match_ref_kf(frame)
+            if nmatch >= 20:
+                T_pred = self.last_frame.pose_cw
+        if nmatch < 20:
+            # fallback 2: unconstrained descriptor match against the last frame
             n2 = self._fallback_match_last_frame(frame)
             if n2 > nmatch:
                 nmatch = n2
                 T_pred = self.last_frame.pose_cw
-        thr = LOST_THRESHOLD
+        thr = self._lost_threshold()
         weak_ok = False
         if nmatch < 10:
             # frame-to-frame association collapsed while the map may still
@@ -374,8 +411,36 @@ class TrackingModule:
         self.num_tracked = num_inl
         self._peak_tracked = max(self._peak_tracked, num_inl)
         self.velocity = (frame.pose_cw @ np.linalg.inv(self.last_frame.pose_cw)).astype(np.float32)
+        self.frames_since_reloc += 1
         if self._new_keyframe_needed(frame):
             self._insert_keyframe(frame)
+
+    def _bow_match_ref_kf(self, frame: Frame):
+        """Word-gated descriptor match against the reference keyframe's
+        landmarks (ref frame_tracker::bow_match_based_track)."""
+        if self.relocalizer is None or self.ref_kf < 0:
+            return 0
+        bow_db = self.relocalizer.bow_db
+        db = self.map_db
+        if self.ref_kf not in bow_db.kf_words:
+            return 0
+        words = bow_db.compute_words(frame.desc_i8, frame.valid)
+        gate = bow_ops.word_gate(self._dev(bow_db.gate_words(words)),
+                                 self._dev(bow_db.gate_words(bow_db.kf_words[self.ref_kf])))
+        has_lm = (db.kf_lm_idx[self.ref_kf] >= 0) & db.kf_kpt_valid[self.ref_kf]
+        idx, _ = M.match_descriptors(self._dev(frame.desc_i8),
+                                     self._dev(db.kf_desc_i8[self.ref_kf]),
+                                     self._dev(frame.valid), self._dev(has_lm), gate=gate,
+                                     max_dist=M.HAMMING_DIST_THR_LOW, ratio=0.9,
+                                     cross_check=True)
+        idx = idx.cpu().numpy()
+        n = 0
+        for i in np.where(idx >= 0)[0]:
+            lm = int(db.kf_lm_idx[self.ref_kf][idx[i]])
+            if lm >= 0 and db.lm_valid[lm] and frame.lm_idx[i] < 0:
+                frame.lm_idx[i] = lm
+                n += 1
+        return n
 
     def _fallback_match_last_frame(self, frame: Frame):
         lf = self.last_frame
@@ -469,7 +534,7 @@ class TrackingModule:
             depth=res.kp_depth.astype(np.float32),
             lm_idx=np.full(K, -1, np.int32), outlier=np.zeros(K, bool))
         n2 = int(res.num_inliers)
-        if int(res.n_stage1) < 10 or n2 < LOST_THRESHOLD:
+        if int(res.n_stage1) < 10 or n2 < self._lost_threshold():
             # rare path: replay the classic ladder on the extracted frame
             pose = self._track_frame(frame)
             self.last_frame = frame
@@ -524,3 +589,52 @@ class TrackingModule:
         self.ref_kf = kf
         self.last_kf_frame_id = frame.frame_id
         self._peak_tracked = 0
+
+    # ------------------------------------------------------------------
+    # relocalization (ref module/relocalizer) with a post-loss grace window
+    # ------------------------------------------------------------------
+    GRACE_FRAMES = 90        # post-loss window with the relaxed gate
+    GRACE_GATE = 25          # inlier gate inside the window (normal: 40)
+
+    def _relocalize(self, frame: Frame):
+        """For GRACE_FRAMES after a loss the camera is still near the map it
+        just built, so the relaxed gate applies, but only to a pose within
+        the distance the camera can have travelled since the loss (in map
+        units, from the last speed); otherwise the normal gate holds."""
+        if self.relocalizer is None:
+            return None
+        d_lost = frame.frame_id - self._lost_at if self._lost_at is not None else None
+        grace = (d_lost is not None and d_lost <= self.GRACE_FRAMES
+                 and self._lost_center is not None)
+        T = self.relocalizer.relocalize(frame, min_inliers=self.GRACE_GATE if grace else None)
+        if T is None:
+            return None
+        gate = 40
+        if grace:
+            c = -T[:3, :3].T.astype(np.float64) @ T[:3, 3]
+            bound = max(3.0 * self._lost_speed, 1.5 * self._lost_speed * (d_lost + 10))
+            if float(np.linalg.norm(c - self._lost_center)) <= bound:
+                gate = self.GRACE_GATE
+        frame.pose_cw = T.astype(np.float32)
+        T_cur, num_inl = self._track_local_map(frame, frame.pose_cw)
+        if num_inl < gate:
+            # the reference accepts a relocalization only at ~50 inliers:
+            # under perceptual aliasing a ~30-inlier success is often false
+            frame.pose_cw = None
+            return None
+        frame.pose_cw = T_cur.astype(np.float32)
+        self.state = TrackerState.TRACKING
+        _log.info("relocalized at frame %d (%d local-map inliers%s)", frame.frame_id, num_inl,
+                  ", grace" if gate == self.GRACE_GATE else "")
+        self.velocity = np.eye(4, dtype=np.float32)
+        # re-anchor on the keyframe the relocalizer matched
+        if self.relocalizer.last_reloc_kf >= 0:
+            self.ref_kf = self.relocalizer.last_reloc_kf
+            self.last_kf_frame_id = frame.frame_id
+        self.num_tracked = num_inl
+        # a spatially verified grace relocalization skips the 30-frame
+        # distrust window (the proximity bound is the evidence it gathers)
+        self.frames_since_reloc = 31 if gate == self.GRACE_GATE else 0
+        self._lost_at = None
+        self._lost_center = None
+        return frame.pose_cw

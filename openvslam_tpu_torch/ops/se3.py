@@ -48,6 +48,49 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
 
 
+def to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) -> (...,4) unit quaternion (x, y, z, w), from the best
+    conditioned of the four constructions."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS)) * 0.5
+
+    qw0 = half_sqrt(1.0 + tr)
+    q0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0), (m10 - m01) / (4 * qw0),
+                      qw0], -1)
+    qx1 = half_sqrt(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1),
+                      (m21 - m12) / (4 * qx1)], -1)
+    qy2 = half_sqrt(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2),
+                      (m02 - m20) / (4 * qy2)], -1)
+    qz3 = half_sqrt(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3,
+                      (m10 - m01) / (4 * qz3)], -1)
+    scores = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22, -m00 - m11 + m22], -1)
+    idx = torch.argmax(scores, -1)
+    qs = torch.stack([q0, q1, q2, q3], -2)
+    q = torch.gather(qs, -2, idx[..., None, None].expand(idx.shape + (1, 4)))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """(...,3,3) rotation -> (...,3) axis-angle (principal value), through
+    the quaternion, which stays accurate up to theta ~ pi."""
+    q = to_quat(R)
+    q = q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+    qv, qw = q[..., :3], q[..., 3]
+    n = torch.linalg.norm(qv, dim=-1)
+    theta = 2.0 * torch.atan2(n, qw)
+    scale = torch.where(n < 1e-7, 2.0 / torch.clamp(qw, min=_EPS),
+                        theta / torch.clamp(n, min=_EPS))
+    return scale[..., None] * qv
+
+
 def _V(w: torch.Tensor) -> torch.Tensor:
     """Left Jacobian of SO(3): integrates translation in the se(3) exp."""
     _, b, c = _coeffs(w)

@@ -1,5 +1,6 @@
-"""Two-view minimal solvers (counterpart of ``openvslam_tpu/ops/solvers.py``
-up to the essential/homography decompositions; ref ``solve/``).
+"""Minimal solvers (counterpart of ``openvslam_tpu/ops/solvers.py``; ref
+``solve/``): fundamental, homography and essential matrices with their
+decompositions, PnP on bearings (DLT and EPnP) and the Sim3 closed form.
 
 Every function takes leading batch dimensions, so a RANSAC round fits and
 scores all its hypotheses in one call (``ops/ransac.py``).  Conventions:
@@ -8,11 +9,11 @@ scores all its hypotheses in one call (``ops/ransac.py``).  Conventions:
 * bearings are unit 3-vectors in the camera frame (..., k, 3).
 * Poses map world->camera: x_cam = R x_w + t.
 
-Null vectors come from ``eigh`` of A^T A and the decompositions from an SVD;
-both leave a sign free, and every consumer here is invariant to it (F and
-H are used up to sign, E's four and H's eight hypotheses form the same set
-whatever the signs).  Solves use the ``_ex`` forms, which do not read their
-status back to the host.
+Null vectors come from ``eigh`` of A^T A in float64 and the decompositions
+from an SVD; both leave a sign free, and every consumer here is invariant
+to it (F and H are used up to sign, E's four and H's eight hypotheses form
+the same set whatever the signs) or fixes it (EPnP's eigenvectors).  Solves
+use the ``_ex`` forms, which do not read their status back to the host.
 """
 from __future__ import annotations
 
@@ -241,3 +242,210 @@ def decompose_homography(H: torch.Tensor, K: torch.Tensor):
     ts = torch.stack(ts)
     ts = ts / torch.clamp(torch.linalg.norm(ts, dim=-1, keepdim=True), min=_EPS)
     return torch.stack(Rs), ts, torch.stack(ns)
+
+
+# ---------------------------------------------------------------------------
+# PnP on bearings — ref solve/pnp_solver
+# ---------------------------------------------------------------------------
+
+def _pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def _hat(b: torch.Tensor) -> torch.Tensor:
+    x, y, z = b[..., 0], b[..., 1], b[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], -1), torch.stack([z, zero, -x], -1),
+                        torch.stack([-y, x, zero], -1)], -2)
+
+
+def _det_fix(U: torch.Tensor, Vt: torch.Tensor) -> torch.Tensor:
+    """diag(1, 1, det(U Vt)) as a (...,3) vector: the proper-rotation fix."""
+    d = torch.linalg.det(U @ Vt)
+    return torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+
+
+def fit_pnp_dlt(bearings: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Linear PnP from k >= 6 (bearing, world point) pairs -> T_cw (...,4,4).
+
+    lambda b = R X + t  =>  hat(b) (R X + t) = 0: three rows per point.  The
+    12 entries of [R|t] are the null vector (float64), the sign is fixed by
+    cheirality, R is projected onto SO(3) and the scale taken from |R|."""
+    k = bearings.shape[-2]
+    X_h = torch.cat([points, torch.ones_like(points[..., :1])], -1)
+    A = torch.einsum("...kab,...kc->...kabc", _hat(bearings), X_h).reshape(
+        bearings.shape[:-2] + (3 * k, 12))
+    Rt = _smallest_right_singular(A).reshape(A.shape[:-2] + (3, 4))
+    Rraw, t_raw = Rt[..., :3], Rt[..., 3]
+    lam = (bearings * (points @ Rraw.transpose(-1, -2) + t_raw[..., None, :])).sum(-1)
+    sgn = torch.where(torch.sign(lam).sum(-1) < 0, -1.0, 1.0).to(Rraw.dtype)
+    Rraw = sgn[..., None, None] * Rraw
+    t_raw = sgn[..., None] * t_raw
+    U, S, Vt = torch.linalg.svd(Rraw)
+    R = (U * _det_fix(U, Vt)[..., None, :]) @ Vt
+    return _pose(R, t_raw / torch.clamp(S.mean(-1), min=_EPS)[..., None])
+
+
+def _eigh64(A: torch.Tensor):
+    """Symmetric eigendecomposition in float64 with each eigenvector's sign
+    fixed (its largest-magnitude entry positive); ascending eigenvalues."""
+    w, V = torch.linalg.eigh(A.to(torch.float64))
+    idx = torch.argmax(torch.abs(V), dim=-2, keepdim=True)
+    sgn = torch.where(torch.gather(V, -2, idx) < 0, -1.0, 1.0).to(V.dtype)
+    return w.to(A.dtype), (V * sgn).to(A.dtype)
+
+
+def _null_basis(M: torch.Tensor, n: int) -> torch.Tensor:
+    """(...,m,c) -> (...,c,n): the n smallest right singular vectors of M
+    (eigh of M^T M in float64), in ascending order with their signs fixed,
+    as EPnP's beta initializations expect.  Where all n are exactly null (a
+    minimal set: eigenvalues within 1e-9 of the largest), the eigensolver's
+    basis of that span is arbitrary and differs between backends and batch
+    sizes; there the basis is a continuous function of the span instead:
+    the QR (diagonal of R positive) of the projections onto it of the
+    control points' depth axes (columns 2, 5, 8, 11), which start EPnP's
+    Gauss-Newton better than the projector's first columns do (minimal
+    sets of tests/test_solvers.py's scene: 75 % solved against 58 %)."""
+    M64 = M.to(torch.float64)
+    w, V = torch.linalg.eigh(M64.transpose(-1, -2) @ M64)
+    Vn = V[..., :n]
+    idx = torch.argmax(torch.abs(Vn), dim=-2, keepdim=True)
+    ordered = Vn * torch.where(torch.gather(Vn, -2, idx) < 0, -1.0, 1.0).to(Vn.dtype)
+    Q, R = torch.linalg.qr((Vn @ Vn.transpose(-1, -2))[..., 2::3])
+    sgn = torch.where(torch.diagonal(R, dim1=-2, dim2=-1) < 0, -1.0, 1.0).to(Q.dtype)
+    degenerate = w[..., n - 1] <= 1e-9 * w[..., -1]
+    return torch.where(degenerate[..., None, None], Q * sgn[..., None, :], ordered).to(M.dtype)
+
+
+_IU, _JU = (0, 0, 0, 1, 1, 2), (1, 2, 3, 2, 3, 3)   # upper-triangle pairs of 4
+
+
+def _solve_sym(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    n = L.shape[-1]
+    Lt = L.transpose(-1, -2)
+    LtL = Lt @ L + 1e-9 * torch.eye(n, dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_ex(LtL, (Lt @ rhs[..., None])).result[..., 0]
+
+
+def fit_pnp_epnp(bearings: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """EPnP on bearings from k >= 4 pairs -> T_cw (...,4,4) (ref
+    solve/pnp_solver, adapted to bearing vectors).
+
+    Four control points (centroid and PCA axes), barycentric alphas, the
+    4-dimensional null space of the 3k x 12 bearing-cross system
+    (``_null_basis``), the three classic beta initializations each refined by 10 Gauss-Newton steps on the six control-point distances
+    and tried with both null-space signs, Kabsch alignment, and the pose
+    with the least bearing error wins.  Degenerate sets give a pose that
+    scores no inliers (non-finite where the Gauss-Newton diverged, as in
+    the JAX package)."""
+    dt, dev = points.dtype, points.device
+    k = points.shape[-2]
+    c0 = points.mean(-2)
+    Xc = points - c0[..., None, :]
+    cov = Xc.transpose(-1, -2) @ Xc / k
+    evals, evecs = _eigh64(cov)
+    axes = (evecs * torch.sqrt(torch.clamp(evals, min=1e-8))[..., None, :]).transpose(-1, -2)
+    ctrl_w = torch.cat([c0[..., None, :], c0[..., None, :] + axes], -2)           # (...,4,3)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    Ainv = torch.linalg.inv_ex(axes.transpose(-1, -2) + 1e-12 * eye3).inverse
+    a123 = Xc @ Ainv.transpose(-1, -2)
+    alphas = torch.cat([1.0 - a123.sum(-1, keepdim=True), a123], -1)               # (...,k,4)
+    M = torch.einsum("...kab,...kj->...kajb", _hat(bearings), alphas).reshape(
+        points.shape[:-2] + (3 * k, 12))
+    V = _null_basis(M, 4).transpose(-1, -2).reshape(points.shape[:-2] + (4, 4, 3))  # (null, ctrl, 3)
+
+    iu, ju = list(_IU), list(_JU)
+    d2_w = ((ctrl_w[..., iu, :] - ctrl_w[..., ju, :]) ** 2).sum(-1)               # (...,6)
+    dV = V[..., :, iu, :] - V[..., :, ju, :]                                         # (...,4,6,3)
+    P = torch.einsum("...apx,...bpx->...abp", dV, dV)                                # (...,4,4,6)
+
+    b0 = torch.sqrt(torch.clamp(P[..., 0, 0, :] * d2_w, min=0.0)).sum(-1) / torch.clamp(
+        P[..., 0, 0, :].sum(-1), min=_EPS)
+    zero = torch.zeros_like(b0)
+    cand1 = torch.stack([b0, zero, zero, zero], -1)
+    s2 = _solve_sym(torch.stack([P[..., 0, 0, :], 2.0 * P[..., 0, 1, :], P[..., 1, 1, :]], -1),
+                    d2_w)
+    b1 = torch.sqrt(torch.clamp(torch.abs(s2[..., 0]), min=_EPS))
+    cand2 = torch.stack([b1, s2[..., 1] / b1, zero, zero], -1)
+    s3 = _solve_sym(torch.stack([P[..., 0, 0, :], 2.0 * P[..., 0, 1, :], P[..., 1, 1, :],
+                                 2.0 * P[..., 0, 2, :], 2.0 * P[..., 1, 2, :], P[..., 2, 2, :]],
+                                -1), d2_w)
+    c1 = torch.sqrt(torch.clamp(torch.abs(s3[..., 0]), min=_EPS))
+    cand3 = torch.stack([c1, s3[..., 1] / c1, s3[..., 3] / c1, zero], -1)
+
+    # the six starts (three inits x two signs) on a new axis before the
+    # null-space axis
+    betas = torch.stack([cand1, cand2, cand3, cand1, cand2, cand3], -2)            # (...,6,4)
+    signs = torch.tensor([1.0, 1.0, 1.0, -1.0, -1.0, -1.0], dtype=dt, device=dev)
+    dV6 = dV[..., None, :, :, :]
+    eye4 = 1e-6 * torch.eye(4, dtype=dt, device=dev)
+    for _ in range(10):
+        e = torch.einsum("...a,...apx->...px", betas, dV6)                           # (...,6,6,3)
+        f = (e * e).sum(-1) - d2_w[..., None, :]
+        J = 2.0 * torch.einsum("...px,...apx->...pa", e, dV6)                        # (...,6,6,4)
+        Jt = J.transpose(-1, -2)
+        step = torch.linalg.solve_ex(Jt @ J + eye4, (Jt @ f[..., None])).result[..., 0]
+        betas = betas - step
+    ctrl_c = signs[:, None, None] * torch.einsum("...a,...apx->...px", betas,
+                                                 V[..., None, :, :, :])               # (...,6,4,3)
+    mu_w = ctrl_w.mean(-2)
+    mu_c = ctrl_c.mean(-2)
+    H = (ctrl_w - mu_w[..., None, :])[..., None, :, :].transpose(-1, -2) @ (
+        ctrl_c - mu_c[..., None, :])
+    # a start whose Gauss-Newton diverged (a degenerate set) has non-finite
+    # control points: its SVD input is zeroed so the CPU's SVD does not
+    # raise (the card's returns NaN), and its t stays non-finite, so it
+    # scores no inliers on either device
+    U, _, Vt = torch.linalg.svd(torch.nan_to_num(H, nan=0.0, posinf=0.0, neginf=0.0))
+    Vm, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
+    Rm = (Vm * _det_fix(Vm, Ut)[..., None, :]) @ Ut
+    t = mu_c - (Rm @ mu_w[..., None, :, None])[..., 0]
+    pred = points[..., None, :, :] @ Rm.transpose(-1, -2) + t[..., None, :]
+    pred = pred / torch.clamp(torch.linalg.norm(pred, dim=-1, keepdim=True), min=_EPS)
+    err = (1.0 - (pred * bearings[..., None, :, :]).sum(-1)).sum(-1)                 # (...,6)
+    best = torch.argmin(err, dim=-1)
+    Rb = torch.gather(Rm, -3, best[..., None, None, None].expand(best.shape + (1, 3, 3)))[..., 0, :, :]
+    tb = torch.gather(t, -2, best[..., None, None].expand(best.shape + (1, 3)))[..., 0, :]
+    return _pose(Rb, tb)
+
+
+def score_pnp(T_cw, bearings, points, mask, thr_cos: float = 0.9999):
+    """Inliers: angle between predicted and observed bearing below the
+    threshold.  T_cw (...,4,4) against (...,N,3) pairs -> (score, inliers)."""
+    pc = points @ T_cw[..., :3, :3].transpose(-1, -2) + T_cw[..., None, :3, 3]
+    pred = pc / torch.clamp(torch.linalg.norm(pc, dim=-1, keepdim=True), min=_EPS)
+    ok = ((pred * bearings).sum(-1) > thr_cos) & mask
+    return ok.to(torch.float32).sum(-1), ok
+
+
+# ---------------------------------------------------------------------------
+# Sim3 closed form (Horn / Umeyama) — ref solve/sim3_solver
+# ---------------------------------------------------------------------------
+
+def fit_sim3_horn(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool = False):
+    """Absolute orientation: (R, t, s) with p2 ~ s R p1 + t from (...,k,3)
+    pairs, k >= 3 (rotation from the SVD of the correlation)."""
+    c1, c2 = p1.mean(-2), p2.mean(-2)
+    q1, q2 = p1 - c1[..., None, :], p2 - c2[..., None, :]
+    U, _, Vt = torch.linalg.svd(q2.transpose(-1, -2) @ q1)
+    R = (U * _det_fix(U, Vt)[..., None, :]) @ Vt
+    if fix_scale:
+        s = torch.ones(p1.shape[:-2], dtype=p1.dtype, device=p1.device)
+    else:
+        s = (q2 * (q1 @ R.transpose(-1, -2))).sum((-1, -2)) / torch.clamp(
+            (q1 * q1).sum((-1, -2)), min=_EPS)
+    return R, c2 - s[..., None] * (R @ c1[..., None])[..., 0], s
+
+
+def score_sim3(g, p1, p2, mask, thr: float):
+    """Symmetric 3-D transfer error below ``thr`` (squared distance) in both
+    directions.  g = (R (...,3,3), t, s) against (...,N,3) pairs."""
+    R, t, s = g
+    p12 = s[..., None, None] * (p1 @ R.transpose(-1, -2)) + t[..., None, :]
+    p21 = ((p2 - t[..., None, :]) @ R) / torch.clamp(s, min=_EPS)[..., None, None]
+    ok = (((p12 - p2) ** 2).sum(-1) < thr) & (((p21 - p1) ** 2).sum(-1) < thr) & mask
+    return ok.to(torch.float32).sum(-1), ok

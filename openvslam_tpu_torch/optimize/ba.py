@@ -1,7 +1,8 @@
-"""Local bundle adjustment with a dense Schur complement (counterpart of
-``make_local_ba`` in ``openvslam_tpu/optimize/ba.py``; ref g2o's
+"""Bundle adjustment (counterpart of ``openvslam_tpu/optimize/ba.py``): the
+local BA with a dense Schur complement (ref g2o's
 ``optimize/local_bundle_adjuster``: local KFs + landmarks + fixed observer
-KFs, LM 5 iterations, outlier removal, 10 more).
+KFs, LM 5 iterations, outlier removal, 10 more) and the matrix-free global
+BA (``make_global_ba``, PCG over the reduced camera system).
 
 * The problem is a fixed-capacity SoA (cams C, landmarks L, observations O)
   with validity masks.
@@ -180,5 +181,106 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10):
         active = active & ok & (c2 < chi2_thr)
         T, X, c2, ok, cost = lm_phase(p._replace(T_cw=T, X=X), active, second_iters)
         return BAResult(T, X, active & ok & (c2 < chi2_thr), cost)
+
+    return optimize
+
+
+# ---------------------------------------------------------------------------
+# Global BA: matrix-free Schur complement + PCG
+# ---------------------------------------------------------------------------
+
+def make_global_ba(cam, iters: int = 10, cg_iters: int = 40):
+    """Matrix-free LM for full-map BA over an unbounded camera count
+    (counterpart of ``make_global_ba``; ref ``optimize/global_bundle_adjuster``).
+
+    Same problem struct as local BA; the reduced camera system is never
+    formed: each PCG step applies S x = Hcc x - W (Hll^-1 (W^T x)) with
+    ``index_add_`` sums over the observations, preconditioned by the
+    inverse camera blocks.  Gauge: cam_opt False for the origin keyframe.
+    Like local BA, the iterations are Python loops over 0-d tensors and
+    nothing is read back to the host inside the solve."""
+    if cam.model_name != "perspective":
+        raise NotImplementedError("only the perspective global BA is ported")
+    chi2_thr = R.CHI2_2D
+
+    def optimize(p: BAProblem) -> BAResult:
+        dev, dt = p.T_cw.device, p.T_cw.dtype
+        C, L = p.T_cw.shape[0], p.X.shape[0]
+        oc, ol = p.obs_cam.to(torch.int64), p.obs_lm.to(torch.int64)
+        inv_s2 = 1.0 / torch.clamp(p.obs_sigma2, min=1e-12)
+        cam_free = p.cam_opt & p.cam_valid
+        free6 = cam_free[:, None].to(dt)
+        obs_ok_static = p.obs_mask & p.cam_valid[oc] & p.lm_valid[ol]
+        eyec = torch.eye(6, dtype=dt, device=dev)
+        eyel = torch.eye(3, dtype=dt, device=dev)
+
+        def cost_of(T, X):
+            r, ok, _ = mono_residuals(cam, T, X, oc, ol, p.obs_uv)
+            c2 = (r * r).sum(-1) * inv_s2
+            w = (obs_ok_static & ok).to(dt)
+            return (_rho(c2, chi2_thr) * w).sum(), c2, ok
+
+        def add(n, idx, blocks):
+            return torch.zeros((n,) + blocks.shape[1:], dtype=dt, device=dev).index_add_(
+                0, idx, blocks)
+
+        T, X = p.T_cw, p.X
+        lam = torch.tensor(1e-4, dtype=dt, device=dev)
+        cost = torch.zeros((), dtype=dt, device=dev)
+        for _ in range(iters):
+            r, ok, Jc, Jl = mono_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
+            c2 = (r * r).sum(-1) * inv_s2
+            w = R.huber_weight(c2, chi2_thr) * inv_s2 * (obs_ok_static & ok).to(dt)
+            Jc = Jc * cam_free[oc][:, None, None]
+            Hcc = add(C, oc, torch.einsum("odi,odj,o->oij", Jc, Jc, w))
+            Hll = add(L, ol, torch.einsum("odi,odj,o->oij", Jl, Jl, w))
+            gc = add(C, oc, torch.einsum("odi,od,o->oi", Jc, r, w))
+            gl = add(L, ol, torch.einsum("odi,od,o->oi", Jl, r, w))
+            Hcc_d = Hcc + lam * Hcc * eyec + 1e-8 * eyec
+            Hll_d = Hll + lam * Hll * eyel + 1e-8 * eyel
+            Hll_d = torch.where(p.lm_valid[:, None, None], Hll_d, eyel)
+            Hll_inv = torch.linalg.inv_ex(Hll_d).inverse
+            # per-observation W_o = w Jc^T Jl (6,3) applies Hcl and Hlc
+            Wo = torch.einsum("odi,odj,o->oij", Jc, Jl, w)
+
+            def S_apply(x):
+                u = add(L, ol, torch.einsum("oij,oi->oj", Wo, x[oc]))
+                y = torch.einsum("lkm,lm->lk", Hll_inv, u)
+                z = add(C, oc, torch.einsum("oij,oj->oi", Wo, y[ol]))
+                return torch.einsum("cij,cj->ci", Hcc_d, x) - z
+
+            rhs = (-gc + add(C, oc, torch.einsum(
+                "oij,oj->oi", Wo, torch.einsum("lkm,lm->lk", Hll_inv, gl)[ol]))) * free6
+            Minv = torch.linalg.inv_ex(torch.where(cam_free[:, None, None], Hcc_d, eyec)).inverse
+            x = torch.zeros((C, 6), dtype=dt, device=dev)
+            rv = rhs
+            pv = torch.einsum("cij,cj->ci", Minv, rhs) * free6
+            rz = (rhs * pv).sum()
+            for _ in range(cg_iters):
+                Ap = S_apply(pv) * free6
+                alpha = rz / torch.clamp((pv * Ap).sum(), min=1e-12)
+                x = x + alpha * pv
+                rv = rv - alpha * Ap
+                z = torch.einsum("cij,cj->ci", Minv, rv) * free6
+                rz_new = (rv * z).sum()
+                pv = z + rz_new / torch.clamp(rz, min=1e-12) * pv
+                rz = rz_new
+            dxc = x * free6
+            u = add(L, ol, torch.einsum("oij,oi->oj", Wo, dxc[oc]))
+            dxl = -torch.einsum("lkm,lm->lk", Hll_inv, gl + u) * p.lm_valid[:, None]
+
+            T_new = R.perturb_pose(dxc, T)
+            X_new = X + dxl
+            cost_new, _, _ = cost_of(T_new, X_new)
+            cost_old, _, _ = cost_of(T, X)
+            # a diverged step masks all its residuals (cost 0): never accept one
+            finite = torch.isfinite(dxc).all() & torch.isfinite(dxl).all()
+            accept = (cost_new < cost_old) & finite
+            T = torch.where(accept, T_new, T)
+            X = torch.where(accept, X_new, X)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
+            cost = torch.minimum(cost_new, cost_old)
+        _, c2, ok = cost_of(T, X)
+        return BAResult(T, X, obs_ok_static & ok & (c2 < chi2_thr), cost)
 
     return optimize

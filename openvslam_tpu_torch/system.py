@@ -1,17 +1,19 @@
 """System facade, mono with synchronous mapping (counterpart of
 ``openvslam_tpu/system.py``; ref ``system.h/.cc``): owns the front end, the
-map database and the tracking and mapping modules, and exposes startup,
-shutdown, ``feed_monocular_frame`` and the trajectory accessors.
+map database and the tracking, mapping and global optimization modules,
+and exposes startup, shutdown, ``feed_monocular_frame``, the loop-detector
+switches, reset and the trajectory accessors.
 
 Tracking runs in the caller; mapping runs synchronously after each keyframe
-insertion.  The common TRACKING path is one fused ``TrackStep`` per frame
-(kernels K1, K2, K3 on the card); initialization and the rare fallbacks
-take the classic module ladder.
+insertion, and so does the loop pipeline (BoW registration, detection,
+Sim3 validation, correction, pose graph, global BA).  The common TRACKING
+path is one fused ``TrackStep`` per frame (kernels K1, K2, K3 on the card);
+initialization, relocalization and the rare fallbacks take the classic
+module ladder.
 
-Not ported: loop detection, relocalization and global optimization (a
-config with ``LoopDetector.enabled`` true raises ``NotImplementedError``;
-note that the config's default is true), async mapping and the pipelined
-``feed_sequence``, stereo and RGB-D, map IO, publishers and autosave.
+Not ported: async mapping, the pipelined ``feed_sequence``, the loop worker
+and the background global BA, stereo and RGB-D, map IO, publishers and
+autosave.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from .data import Frame, MapDatabase
 from .device import resolve_device
 from .models.frontend import OrbFrontend
 from .models.track_step import TrackStep
+from .module.global_optimization_module import GlobalOptimizationModule
 from .module.mapping_module import MappingModule
 from .module.tracking_module import TrackerState, TrackingModule
 from .utils.log import get_logger
@@ -48,12 +51,10 @@ def equalize_histogram(img: np.ndarray) -> np.ndarray:
 
 
 class System:
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, vocab_path: Optional[str] = None, device="cuda"):
+        """``vocab_path`` None or "default" takes the package's vocabulary for
+        the descriptor pattern; otherwise an npz vocabulary file."""
         self.device = resolve_device(device)
-        if cfg.loop.enabled:
-            raise NotImplementedError(
-                "loop detection and relocalization are not ported yet: "
-                "set LoopDetector.enabled to false")
         if cfg.camera.setup != SetupType.MONOCULAR:
             raise NotImplementedError("only the monocular System is ported")
         self.cfg = cfg
@@ -68,8 +69,14 @@ class System:
         self.camera_name = self.map_db.register_camera(
             cfg.raw.get("Camera", {}).get("name", "default"), camera_to_config(self.cam),
             make_default=True)
-        self.mapper = MappingModule(cfg, self.cam, self.map_db, device=self.device)
+        # the BoW stack is always built (relocalization needs it); loop
+        # detection stays gated by cfg.loop.enabled inside the module
+        self.global_optimizer = GlobalOptimizationModule(cfg, self.cam, self.map_db, vocab_path,
+                                                         fix_scale=False, device=self.device)
+        self.mapper = MappingModule(cfg, self.cam, self.map_db,
+                                    global_optimizer=self.global_optimizer, device=self.device)
         self.tracker = TrackingModule(cfg, self.cam, self.map_db, mapper=self.mapper,
+                                      relocalizer=self.global_optimizer.relocalizer,
                                       device=self.device)
         # static mask from Feature.mask_rectangles ([y0,y1,x0,x1] ratios)
         self._static_mask = None
@@ -98,6 +105,36 @@ class System:
     def shutdown(self):
         _log.info("system shutdown: %d frames, %d keyframes, %d landmarks",
                   len(self.trajectory), self.map_db.n_kfs, len(self.map_db.valid_lm_ids()))
+
+    def abort_loop_BA(self):
+        """Skip the next global BA (ref system::abort_loop_BA)."""
+        self.global_optimizer.abort_global_ba = True
+
+    def enable_loop_detector(self):
+        self.global_optimizer.loop_enabled = True
+
+    def disable_loop_detector(self):
+        self.global_optimizer.loop_enabled = False
+
+    def loop_detector_is_enabled(self) -> bool:
+        return self.global_optimizer.loop_enabled
+
+    def loop_BA_is_running(self) -> bool:
+        """Always False: the global BA runs inline in synchronous mode."""
+        return self.global_optimizer.loop_BA_is_running()
+
+    def request_reset(self):
+        """Drop the map, the BoW database and the loop state; tracking
+        starts over from initialization."""
+        _log.info("map reset requested")
+        self.map_db = MapDatabase(kpt_capacity=self.frontend.capacity)
+        self.camera_name = self.map_db.register_camera(
+            self.camera_name, camera_to_config(self.cam), make_default=True)
+        self.mapper.reset(self.map_db)
+        self.tracker.reset(self.map_db)
+        self.global_optimizer.reset(self.map_db)
+        self.trajectory.clear()
+        self.traj_ref.clear()
 
     # ------------------------------------------------------------------
     def _use_fused(self) -> bool:
@@ -192,6 +229,7 @@ class System:
         mapping work, capacity overflows)."""
         tt = np.array(self.track_times) if self.track_times else np.zeros(1)
         m = self.mapper
+        go = self.global_optimizer
         return {
             "state": self.tracker.state.name,
             "frames_fed": self.frame_id,
@@ -205,6 +243,11 @@ class System:
             "local_ba_runs": m.ba_runs,
             "ba_iters_per_s": m.ba_iters_total / m.ba_wall_s if m.ba_wall_s > 0 else 0.0,
             "fetch_wait_s": self.tracker.fetch_wait_s,
+            "loops_closed": go.num_loops_closed,
+            "loop_checks_run": go.loop_checks_run,
+            "loop_cands_seen": go.loop_cands_seen,
+            "loop_validations": go.loop_validations,
+            "reloc_attempts": go.relocalizer.attempts,
             # entries dropped at a fixed-capacity boundary (local map cap, BA
             # windows): nonzero values mean the caps need raising
             "overflow": {**self.tracker.overflow, **m.overflow},

@@ -1,4 +1,4 @@
-"""ctypes bridge to the port's native host kernel (``csrc/map_core.cpp``;
+"""ctypes bridge to the port's native host kernels (``csrc/map_core.cpp``;
 counterpart of ``openvslam_tpu/utils/native.py``).
 
 The source is compiled with ``g++`` on first use into ``build/`` inside
@@ -56,6 +56,10 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(out)
             lib.min_median_hamming.restype = ctypes.c_int32
             lib.min_median_hamming.argtypes = [ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64]
+            i64p, i32p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)
+            lib.bow_shared_words.restype = ctypes.c_int32
+            lib.bow_shared_words.argtypes = [i32p, ctypes.c_int64, i64p, i64p, ctypes.c_int64,
+                                             i64p, i32p, ctypes.c_int64]
             _lib = lib
         return _lib
 
@@ -78,3 +82,33 @@ def min_median_hamming_plain(descs_u32: np.ndarray) -> int:
     n = d.shape[0]
     med = np.partition(x, n // 2, axis=1)[:, n // 2]
     return int(np.argmin(med))
+
+
+def bow_shared_words(query_words: np.ndarray, inv_offsets: np.ndarray, inv_kfs: np.ndarray,
+                     max_out: int = 8192):
+    """Keyframes sharing words with a query: (kf_ids (n,) int64, counts (n,)
+    int32), each query word counted once, over the CSR inverted index
+    (``inv_offsets`` (W+1,), ``inv_kfs``)."""
+    qw = np.ascontiguousarray(query_words, np.int32)
+    io_ = np.ascontiguousarray(inv_offsets, np.int64)
+    ik = np.ascontiguousarray(inv_kfs, np.int64)
+    out_kf = np.empty(max_out, np.int64)
+    out_ct = np.empty(max_out, np.int32)
+    i64p, i32p = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32)
+    n = library().bow_shared_words(
+        qw.ctypes.data_as(i32p), len(qw), io_.ctypes.data_as(i64p), ik.ctypes.data_as(i64p),
+        len(io_) - 1, out_kf.ctypes.data_as(i64p), out_ct.ctypes.data_as(i32p), max_out)
+    return out_kf[:n].copy(), out_ct[:n].copy()
+
+
+def bow_shared_words_plain(query_words: np.ndarray, inv_offsets: np.ndarray,
+                           inv_kfs: np.ndarray):
+    """numpy version of ``bow_shared_words``: the same counts, in keyframe
+    order (the native order is the hash map's)."""
+    qw = np.asarray(query_words)
+    io_ = np.asarray(inv_offsets, np.int64)
+    words = np.unique(qw[(qw >= 0) & (qw < len(io_) - 1)])
+    kfs = np.concatenate([np.asarray(inv_kfs, np.int64)[io_[w]:io_[w + 1]] for w in words]) \
+        if len(words) else np.zeros(0, np.int64)
+    ks, vs = np.unique(kfs, return_counts=True)
+    return ks.astype(np.int64), vs.astype(np.int32)

@@ -1,7 +1,8 @@
 """Synthetic scenes and trajectories (a copy of the numpy parts of
-``openvslam_tpu/utils/synthetic.py`` that the tracking step's tests and
-``chip_smoke.py`` use; the renderer projects with the port's camera), and
-the matcher's adversarial inputs (``adversarial_match_cases``)."""
+``openvslam_tpu/utils/synthetic.py`` that the port's tests and
+``chip_smoke.py`` use: the patch scene and orbit, and the textured n-gon
+room with its lap trajectory; the renderers project with the port's
+camera), and the matcher's adversarial inputs (``adversarial_match_cases``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -35,6 +36,106 @@ def orbit_trajectory(n_frames: int, radius=2.0, target=(0, 0, 6), arc=np.pi / 3)
     """Smooth sideways arc of camera poses looking at ``target`` -> (N,4,4) T_cw."""
     return np.stack([lookat_pose_cw([radius * np.sin(a), 0.0, radius * (1 - np.cos(a))], target)
                      for a in np.linspace(-arc / 2, arc / 2, n_frames)])
+
+
+def lap_trajectory(n_frames: int, radius=6.0, laps=1.0, start_angle=0.0):
+    """Camera circling inside the room looking radially outward -> (N,4,4)."""
+    out = []
+    for i in range(n_frames):
+        a = start_angle + 2 * np.pi * laps * i / n_frames
+        eye = np.array([radius * np.cos(a), 0.0, radius * np.sin(a)])
+        out.append(lookat_pose_cw(eye, eye * 2.5))
+    return np.stack(out)
+
+
+def noise_texture(rng: np.random.Generator, th: int, tw: int,
+                  octaves=((4, 0.2), (16, 0.4), (64, 1.0), (128, 0.6)),
+                  dots=True) -> np.ndarray:
+    """Multi-octave value-noise texture with FAST-friendly structure,
+    float32 in [20, 245]."""
+    tex = np.zeros((th, tw))
+    for octave, amp in octaves:
+        gh = max(2, octave * th // max(th, tw))
+        gw = max(2, octave)
+        coarse = rng.random((gh, gw))
+        yi = np.linspace(0, gh - 1, th)
+        xi = np.linspace(0, gw - 1, tw)
+        y0 = np.floor(yi).astype(int)
+        x0 = np.floor(xi).astype(int)
+        y1 = np.minimum(y0 + 1, gh - 1)
+        x1 = np.minimum(x0 + 1, gw - 1)
+        fy = (yi - y0)[:, None]
+        fx = (xi - x0)[None, :]
+        tex += amp * (coarse[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+                      + coarse[np.ix_(y0, x1)] * (1 - fy) * fx
+                      + coarse[np.ix_(y1, x0)] * fy * (1 - fx)
+                      + coarse[np.ix_(y1, x1)] * fy * fx)
+    if dots:
+        # salt-and-pepper corners
+        n_dots = tw * th // 300
+        ys = rng.integers(1, th - 1, n_dots)
+        xs = rng.integers(1, tw - 1, n_dots)
+        tex[ys, xs] += rng.uniform(-1.5, 1.5, n_dots)
+    tex -= tex.min()
+    tex /= max(tex.max(), 1e-9)
+    return (20 + tex * 225).astype(np.float32)
+
+
+class RoomSceneRenderer:
+    """Textured walls of a regular n-gon room with the camera inside: full
+    laps revisit their start (the loop-closure topology).  numpy ray casting
+    against the wall planes; the nearest valid hit wins."""
+
+    def __init__(self, rng: np.random.Generator, half=10.0, y_range=(-5.0, 5.0),
+                 res=40, rows=320, cols=416, n_walls=8,
+                 octaves=((4, 0.2), (16, 0.4), (64, 1.0), (128, 0.6)), dots=True):
+        self.half = half
+        self.rows = rows
+        self.cols = cols
+        self.y0, self.y1 = y_range
+        self.res = res
+        wall_w = 2 * half * np.tan(np.pi / n_walls)
+        self.walls = []
+        self.defs = []
+        for k in range(n_walls):
+            # the JAX package draws each wall's texture as that of a plane
+            # scene spanning x in [0, wall_w): the same shape and draws
+            tw = int((wall_w - 0.0) * res)
+            th = int((self.y1 - self.y0) * res)
+            self.walls.append(noise_texture(rng, th, tw, octaves, dots))
+            a = 2 * np.pi * k / n_walls
+            n = np.array([np.cos(a), 0.0, np.sin(a)])
+            u = np.array([-np.sin(a), 0.0, np.cos(a)])
+            self.defs.append((half * n, n, u))
+        self.wall_w = wall_w
+
+    def render(self, cam, T_cw: np.ndarray) -> np.ndarray:
+        uu, vv = np.meshgrid(np.arange(self.cols), np.arange(self.rows))
+        pix = np.stack([uu.reshape(-1), vv.reshape(-1)], -1).astype(np.float32)
+        brg = cam.keypoints_to_bearings(torch.from_numpy(pix)).numpy()
+        R = T_cw[:3, :3]
+        c = -R.T @ T_cw[:3, 3]
+        d = brg @ R
+        best_lam = np.full(len(d), np.inf)
+        out = np.zeros(len(d), np.float32)
+        for (p0, n, u_axis), tex in zip(self.defs, self.walls):
+            denom = d @ n
+            lam = ((p0 - c) @ n) / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+            X = c[None, :] + lam[:, None] * d
+            tu = (X @ u_axis + self.wall_w / 2) * self.res
+            tv = (X[:, 1] - self.y0) * self.res
+            th, tw = tex.shape
+            ok = ((lam > 1e-3) & (lam < best_lam)
+                  & (tu >= 0) & (tu < tw - 1) & (tv >= 0) & (tv < th - 1))
+            x0 = np.clip(np.floor(tu).astype(int), 0, tw - 2)
+            y0 = np.clip(np.floor(tv).astype(int), 0, th - 2)
+            fx = np.clip(tu - x0, 0, 1)
+            fy = np.clip(tv - y0, 0, 1)
+            val = (tex[y0, x0] * (1 - fx) * (1 - fy) + tex[y0, x0 + 1] * fx * (1 - fy)
+                   + tex[y0 + 1, x0] * (1 - fx) * fy + tex[y0 + 1, x0 + 1] * fx * fy)
+            out = np.where(ok, val, out)
+            best_lam = np.where(ok, lam, best_lam)
+        return out.reshape(self.rows, self.cols).astype(np.uint8)
 
 
 class PatchSceneRenderer:

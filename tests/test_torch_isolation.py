@@ -7,9 +7,10 @@
   raises instead of running on the CPU;
 * kernel wrappers take the plain version only for CPU tensors and count no
   launch for them; other devices raise;
-* the package carries its own descriptor patterns, and a missing one raises;
-* the System refuses what is not ported (loop detection, which the config
-  enables by default) instead of ignoring it;
+* the package carries its own descriptor patterns and vocabularies, and a
+  missing one raises;
+* the mono System runs with loop detection on (the config's default) and
+  refuses what is not ported (stereo) instead of ignoring it;
 * no module names a path outside the package (its native source and build
   live inside it), and a failed native build raises instead of falling
   back to Python;
@@ -28,6 +29,7 @@ import openvslam_tpu_torch
 from openvslam_tpu_torch import kernels
 from openvslam_tpu_torch.camera import Perspective
 from openvslam_tpu_torch.config import Config
+from openvslam_tpu_torch.data import bow
 from openvslam_tpu_torch.models.frame_step import FrameStep
 from openvslam_tpu_torch.models.frontend import OrbFrontend
 from openvslam_tpu_torch.models.track_step import TrackStep
@@ -114,11 +116,21 @@ def test_pattern_assets_are_the_ports_own(monkeypatch, tmp_path):
     ref = np.load(os.path.join(ROOT, "openvslam_tpu", "assets", "brief_pattern.npy"))
     np.testing.assert_array_equal(ours, ref.astype(np.float32))
     assert orb._PATTERN_ASSETS["learned"].startswith(PKG)
+    # the default vocabularies (one per pattern) are read from the package
+    for pattern, path in bow.VOCAB_ASSETS.items():
+        assert path.startswith(os.path.join(PKG, "assets") + os.sep)
+        voc = bow.default_vocabulary(pattern=pattern)
+        ref = np.load(os.path.join(ROOT, "assets", os.path.basename(path)))
+        np.testing.assert_array_equal(voc.centers_i8, ref["centers"].astype(np.int8))
+        np.testing.assert_array_equal(voc.idf, ref["idf"])
     monkeypatch.setitem(orb._PATTERN_ASSETS, "cv", str(tmp_path / "missing.npy"))
+    monkeypatch.setitem(bow.VOCAB_ASSETS, "cv", str(tmp_path / "missing.npz"))
     orb.get_pattern_np.cache_clear()
     try:
         with pytest.raises(FileNotFoundError):
             orb.get_pattern_np("cv")
+        with pytest.raises(FileNotFoundError):
+            bow.default_vocabulary(pattern="cv")
     finally:
         orb.get_pattern_np.cache_clear()
 
@@ -131,11 +143,14 @@ def _small_config(**extra):
 
 
 def test_system_refuses_missing_cuda_and_unported_features(monkeypatch):
-    with pytest.raises(NotImplementedError, match="LoopDetector"):
-        System(Config.from_dict(_small_config(LoopDetector={"enabled": True})), device="cpu")
+    on = System(Config.from_dict(_small_config(LoopDetector={"enabled": True})), device="cpu")
+    assert on.loop_detector_is_enabled() and not on.loop_BA_is_running()
     default = {k: v for k, v in _small_config().items() if k != "LoopDetector"}
-    with pytest.raises(NotImplementedError, match="LoopDetector"):
-        System(Config.from_dict(default), device="cpu")
+    s = System(Config.from_dict(default), device="cpu")
+    assert s.loop_detector_is_enabled()
+    s.startup()
+    assert s.feed_monocular_frame(np.zeros((48, 64), np.uint8), 0.0) is None
+    s.shutdown()
     cam = dict(_small_config()["Camera"], setup="stereo", focal_x_baseline=10.0)
     with pytest.raises(NotImplementedError, match="monocular"):
         System(Config.from_dict(_small_config(Camera=cam)), device="cpu")
