@@ -34,13 +34,27 @@ Phases:
      relocalize.  The first relocalization's stage 1, the accepted loop's
      Sim3 validation, the pose graph and the global BA of the correction
      are captured by wrapping the functions the modules call, and replayed
-     on the CPU.
+     on the CPU;
+  5b. bench.py's system point as bench.py runs it: phase 5's frames through
+     ``System(cfg, async_mapping=True)`` and ``feed_sequence(depth=3)``
+     (mapping, the loop pipeline and the global BA on worker threads, each
+     on its own CUDA stream), warm-up 40 frames; phase 5's gates plus no
+     pace timeout, no worker exception and a clean shutdown; it reports
+     bench.py's wait decomposition and a profiler window over 10 frames;
+  6b. phase 6's path over 400 frames (1 degree a frame, each frame rendered
+     as it is fed, as tools/loop_point_jax.py feeds the JAX System, which
+     closes this lap with async mapping; phase 6's 200 frames it loses)
+     through the async System and ``feed_sequence(depth=1)``: the loop must
+     be closed by the loop worker, with phase 6's gates (the System settles
+     before the blank frames: the mapping queue drained, the loop worker
+     idle, the global BA joined), and K2 must launch from the loop worker.
 Kernel launch counts are reset just before each main-path run and read just
 after it.  Any mismatch, any kernel that a main-path run did not launch, or
 any exception exits non-zero.  The last line is a JSON object with the
 device; the line before it is the card's name and power limit; the line
 before that lists every kernel with its numbers and its launches in the
-four main-path runs (FrameStep, TrackStep, System, loop-and-relocalization).
+six main-path runs (FrameStep, TrackStep, System, loop-and-relocalization
+and their async runs).
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -68,6 +83,13 @@ LOOP_POINT = dict(rows=480, cols=640, keypoints=1000, levels=8, frames=200)
 # port is held to the reference's own reading with a 25 % margin.
 LOOP_REF_KF_ATE_M = 0.352
 LOOP_ATE_MARGIN = 1.25
+# Phase 6b's lap: phase 6's path over 400 frames (1 degree a frame), each
+# frame rendered as it is fed, through feed_sequence at depth 1.  The JAX
+# System with async mapping closes it at depths 1 and 3
+# (tools/loop_point_jax.py --async-mapping --depth D --frames 400) and loses
+# phase 6's 200 frames; the port loses this lap at depth 3 (ROADMAP Queue 3).
+ASYNC_LOOP_FRAMES = 400
+ASYNC_LOOP_DEPTH = 1
 
 
 def log(msg: str) -> None:
@@ -142,6 +164,98 @@ def profile_summary(by_name, n_frames, frame_ms, top=8):
                      for k, (t, c) in rows])
 
 
+def window_summary(prof, wall_s: float, n_frames: int, frame_ms: float):
+    """Device activity of a profiler window whose host wall time was
+    ``wall_s``: kernels per frame, the summed kernel time per frame, and
+    the union of the kernels' intervals per frame (the worker threads'
+    streams overlap the tracker's, so the sum can exceed the union).  The
+    idle share is 1 - union / ``frame_ms`` (the untraced median frame);
+    the window's own idle share is reported too (tracing slows the host)."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    busy_sum = sum(b - a for a, b in spans) / 1e3 / n_frames
+    busy = union / 1e3 / n_frames
+    return dict(kernels_per_frame=len(spans) / n_frames, device_busy_sum_ms_per_frame=busy_sum,
+                device_busy_union_ms_per_frame=busy, frame_ms=frame_ms,
+                device_idle_share=1.0 - busy / frame_ms,
+                window_idle_share=1.0 - union / 1e3 / (wall_s * 1e3))
+
+
+def system_config():
+    """bench.py's system point (``bench.py:60-77``; loop detection on with
+    minimum continuity 3)."""
+    from openvslam_tpu_torch.config import Config
+
+    return Config.from_dict({
+        "Camera": {"name": "bench-mono", "setup": "monocular", "model": "perspective",
+                   "fx": 520.0, "fy": 520.0, "cx": 320.0, "cy": 240.0,
+                   "cols": 640, "rows": 480, "fps": 20},
+        "Feature": {"max_num_keypts": 1000, "num_levels": 8, "scale_factor": 1.2},
+        "LoopDetector": {"enabled": True, "min_continuity": 3},
+    })
+
+
+def system_frames(cam, n: int = 240):
+    """bench.py's rendered orbit: (frames, ground-truth poses)."""
+    from openvslam_tpu_torch.utils import synthetic
+
+    scene = synthetic.PatchSceneRenderer(np.random.default_rng(11), n_points=900,
+                                         center=(0, 0, 6), extent=(7, 5, 2.5),
+                                         rows=cam.rows, cols=cam.cols)
+    gt = synthetic.orbit_trajectory(n, radius=2.5, target=(0, 0, 6), arc=np.pi / 3)
+    t = time.perf_counter()
+    imgs = [scene.render(cam, gt[i]) for i in range(n)]
+    log(f"System: {n} frames rendered in {time.perf_counter() - t:.1f}s")
+    return imgs, gt
+
+
+def trajectory_ate(poses, gt, evaluate) -> float:
+    """ATE(sim3) of the tracked frames' centres (inf below 3 tracked)."""
+    idx = [i for i, p in enumerate(poses) if p is not None]
+    if len(idx) < 3:
+        return float("inf")
+    ce = np.stack([-poses[i][:3, :3].T @ poses[i][:3, 3] for i in idx])
+    cg = np.stack([-gt[i][:3, :3].T @ gt[i][:3, 3] for i in idx])
+    return float(evaluate.ate_rmse(ce, cg, align="sim3"))
+
+
+def settle(s, timeout: float = 300.0) -> float:
+    """Wait until the async System's workers are idle: the mapping queue
+    drained, the loop worker idle, no global BA running.  Returns the
+    seconds waited; fails after ``timeout``."""
+    t0 = time.monotonic()
+    proxy, go = s._tracker_mapper, s.global_optimizer
+    while not (proxy.idle and go.loop_idle and not go.loop_BA_is_running()):
+        if time.monotonic() - t0 > timeout:
+            fail(f"the async System did not settle within {timeout} s")
+            break
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def clean_shutdown(s) -> dict:
+    """Shut the async System down and report what the workers left."""
+    s.shutdown()
+    st = s.stats()
+    return dict(mapper_idle=s._tracker_mapper.idle, loop_backlog=st["loop_backlog"],
+                loop_worker_alive=s.global_optimizer._loop_thread is not None,
+                global_ba_alive=s.loop_BA_is_running(),
+                worker_exceptions=st["worker_exceptions"],
+                worker_first_exception=st["worker_first_exception"])
+
+
+def shutdown_ok(row) -> bool:
+    return (row["mapper_idle"] and row["loop_backlog"] == 0 and not row["loop_worker_alive"]
+            and not row["global_ba_alive"] and row["worker_exceptions"] == 0)
+
+
 def loop_config_dict() -> dict:
     """Phase 6's configuration (``Config.from_dict`` of either package)."""
     rows, cols = LOOP_POINT["rows"], LOOP_POINT["cols"]
@@ -154,12 +268,13 @@ def loop_config_dict() -> dict:
             "LoopDetector": {"enabled": True, "min_continuity": 2}}
 
 
-def loop_scene(synthetic, cam):
+def loop_scene(synthetic, cam, frames: int = LOOP_POINT["frames"]):
     """Phase 6's (scene, ground-truth poses) from a ``utils.synthetic``
-    module: the port's, or the JAX package's copy of it."""
+    module: the port's, or the JAX package's copy of it.  ``frames`` spreads
+    the same 200-degree path over that many frames."""
     scene = synthetic.RoomSceneRenderer(np.random.default_rng(7), half=10.0, rows=cam.rows,
                                         cols=cam.cols, n_walls=8)
-    return scene, synthetic.lap_trajectory(LOOP_POINT["frames"], radius=6.0, laps=200 / 180)
+    return scene, synthetic.lap_trajectory(frames, radius=6.0, laps=200 / 180)
 
 
 def keyframe_ate(db, gt, evaluate) -> float:
@@ -204,36 +319,24 @@ def build_local_map(fs_or_fe, cam, scene, T0_cw, img0, L, device):
     return lm_pos, lm_desc, lm_valid, lm_kp, kp_level, kp_desc, n
 
 
-def system_phase(dev, n: int = 240):
+def system_phase(dev, n: int = 240, frames=None):
     """Phase 5: the port's System on ``dev`` (the card) at bench.py's system
-    point (``bench.py:60-77``, loop detection on with minimum continuity 3)
-    over ``n`` rendered frames, fed one by one at 20 fps timestamps.
-    Returns (summary dict, launch counts of the run)."""
+    point (``system_config``) over ``n`` rendered frames (or ``frames``,
+    as ``system_frames`` returns them), fed one by one at 20 fps
+    timestamps.  Returns (summary dict, launch counts of the run)."""
     import torch
     from openvslam_tpu_torch import kernels
-    from openvslam_tpu_torch.config import Config
     from openvslam_tpu_torch.initialize import two_view as TV
     from openvslam_tpu_torch.optimize.ba import BAResult, make_local_ba
     from openvslam_tpu_torch.system import System
-    from openvslam_tpu_torch.utils import evaluate, synthetic
+    from openvslam_tpu_torch.utils import evaluate
 
-    cfg = Config.from_dict({
-        "Camera": {"name": "bench-mono", "setup": "monocular", "model": "perspective",
-                   "fx": 520.0, "fy": 520.0, "cx": 320.0, "cy": 240.0,
-                   "cols": 640, "rows": 480, "fps": 20},
-        "Feature": {"max_num_keypts": 1000, "num_levels": 8, "scale_factor": 1.2},
-        "LoopDetector": {"enabled": True, "min_continuity": 3},
-    })
+    cfg = system_config()
     cam = cfg.camera
-    scene = synthetic.PatchSceneRenderer(np.random.default_rng(11), n_points=900,
-                                         center=(0, 0, 6), extent=(7, 5, 2.5),
-                                         rows=cam.rows, cols=cam.cols)
     warm = 40
-    gt = synthetic.orbit_trajectory(n, radius=2.5, target=(0, 0, 6), arc=np.pi / 3)
-    t = time.perf_counter()
-    imgs = [scene.render(cam, gt[i]) for i in range(n)]
-    log(f"System: {n} frames rendered in {time.perf_counter() - t:.1f}s; LoopDetector on, "
-        f"minimum continuity 3")
+    imgs, gt = frames if frames is not None else system_frames(cam, n)
+    n = len(imgs)
+    log("System: synchronous mapping, frame by frame; LoopDetector on, minimum continuity 3")
 
     # capture the first and last bootstrap attempts (operands, generator
     # state, result) and the first and last local BA problems while the
@@ -250,8 +353,8 @@ def system_phase(dev, n: int = 240):
     s = System(cfg, device=dev)
     local_ba = s.mapper.local_ba
 
-    def spy_ba(prob):
-        res = local_ba(prob)
+    def spy_ba(prob, *stop):
+        res = local_ba(prob, *stop)
         captured["ba"] = captured["ba"][:1] + [(prob, res)]
         return res
 
@@ -286,11 +389,7 @@ def system_phase(dev, n: int = 240):
     tracked = np.array([p is not None for p in poses])
     first = int(np.argmax(tracked)) if tracked.any() else -1
     idx = np.where(tracked)[0]
-    ate = float("inf")
-    if len(idx) >= 3:
-        ce = np.stack([-poses[i][:3, :3].T @ poses[i][:3, 3] for i in idx])
-        cg = np.stack([-gt[i][:3, :3].T @ gt[i][:3, 3] for i in idx])
-        ate = float(evaluate.ate_rmse(ce, cg, align="sim3"))
+    ate = trajectory_ate(poses, gt, evaluate)
     timed = [j for j in range(warm, n) if not (by_name is not None and j in prof_frames)]
     tt = np.array(s.track_times)[timed] * 1e3
     m = s.mapper
@@ -392,11 +491,48 @@ def system_phase(dev, n: int = 240):
     return out, counts
 
 
-def loop_phase(dev):
-    """Phase 6: the System on ``dev`` over the lap at ``LOOP_POINT``, loop
-    detection on with minimum continuity 2; then 3 blank frames and the
-    rendering of frame 20 for up to 3 attempts.  Returns (summary dict,
-    launch counts of the run)."""
+class LapRender:
+    """Phase 6's path over ``frames`` frames as a sequence whose items are
+    rendered when they are read: fed to the System, each frame is rendered
+    on the feeding thread just before it is tracked, as
+    ``tools/loop_point_jax.py`` feeds the JAX System."""
+
+    def __init__(self, cam, frames: int):
+        from openvslam_tpu_torch.utils import synthetic
+
+        self.cam = cam
+        self.scene, self.gt = loop_scene(synthetic, cam, frames)
+
+    def __len__(self) -> int:
+        return len(self.gt)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.scene.render(self.cam, self.gt[i])
+
+
+def loop_frames(cam, frames: int = LOOP_POINT["frames"]):
+    """A rendered lap (phase 6's, or the same path over ``frames`` frames):
+    (frames, the view of the frame 20 degrees in, ground truth)."""
+    lap = LapRender(cam, frames)
+    t = time.perf_counter()
+    imgs = [lap[i] for i in range(frames)]
+    log(f"Loop: {frames} lap frames rendered in {time.perf_counter() - t:.1f}s "
+        f"({cam.cols}x{cam.rows})")
+    return imgs, lap[revisit_index(frames)], lap.gt
+
+
+def revisit_index(frames: int) -> int:
+    """The lap frame whose view the relocalization attempts show again: 20
+    degrees in, frame 20 of phase 6's lap."""
+    return 20 * frames // LOOP_POINT["frames"]
+
+
+def loop_phase(dev, frames=None):
+    """Phase 6: the System on ``dev`` over the lap at ``LOOP_POINT`` (or
+    ``frames``, as ``loop_frames`` returns them), loop detection on with
+    minimum continuity 2; then 3 blank frames and the rendering of frame 20
+    for up to 3 attempts.  Returns (summary dict, launch counts of the
+    run)."""
     import torch
     from openvslam_tpu_torch import kernels
     from openvslam_tpu_torch.config import Config
@@ -408,16 +544,13 @@ def loop_phase(dev):
     from openvslam_tpu_torch.optimize.ba import make_global_ba
     from openvslam_tpu_torch.optimize.pose_graph import make_pose_graph_optimizer
     from openvslam_tpu_torch.system import System
-    from openvslam_tpu_torch.utils import evaluate, synthetic
+    from openvslam_tpu_torch.utils import evaluate
 
     cfg = Config.from_dict(loop_config_dict())
     cam = cfg.camera
-    rows, cols, n = cam.rows, cam.cols, LOOP_POINT["frames"]
-    scene, gt = loop_scene(synthetic, cam)
-    t = time.perf_counter()
-    imgs = [scene.render(cam, gt[i]) for i in range(n)]
-    revisit = scene.render(cam, gt[20])
-    log(f"Loop: {n} lap frames rendered in {time.perf_counter() - t:.1f}s ({cols}x{rows})")
+    rows, cols = cam.rows, cam.cols
+    imgs, revisit, gt = frames if frames is not None else loop_frames(cam)
+    n = len(imgs)
 
     s = System(cfg, device=dev)
     go = s.global_optimizer
@@ -630,6 +763,269 @@ def loop_phase(dev):
         fail("Loop: the pose graph on the card disagrees with the CPU's")
     if not ok_gba:
         fail("Loop: the global BA on the card disagrees with the CPU's")
+    return out, counts
+
+
+def async_system_phase(dev, frames, warm: int = 40, prof_frames=range(120, 130)):
+    """Phase 5b: bench.py's system point as bench.py runs it
+    (``bench.py:79-127``): ``System(cfg, async_mapping=True)`` fed through
+    ``feed_sequence(depth=3)`` with phase 5's ``frames``; the wait
+    accumulators are reset at frame ``warm``.  A profiler window covers the
+    frames yielded at ``prof_frames``, which the frame-time statistics
+    leave out.  Returns (summary dict, launch counts of the run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate
+
+    cfg = system_config()
+    imgs, gt = frames
+    n = len(imgs)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    s = System(cfg, async_mapping=True, device=dev)
+    s.startup()
+    t_warm = [None]
+
+    def items():
+        for i in range(n):
+            if i == warm:
+                # bench.py resets the wait accumulators where its timed
+                # window starts
+                s.tracker.fetch_wait_s = 0.0
+                s._pace_waits, s._pace_wait_s = 0, 0.0
+                t_warm[0] = time.perf_counter()
+            yield imgs[i], i / 20.0
+
+    poses, prof, prof_wall = [], None, None
+    sync()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    depth = 3                   # bench.py's
+    for k, (_, pose) in enumerate(s.feed_sequence(items(), kind="monocular", depth=depth)):
+        poses.append(pose)
+        if cuda and n > prof_frames[-1] and k == prof_frames[0] - 1:
+            sync()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        elif prof is not None and prof_wall is None and k == prof_frames[-1]:
+            sync()
+            prof_wall = time.perf_counter() - t_prof
+            prof.__exit__(None, None, None)
+    t_end = time.perf_counter()
+    fetch_wait, pace_wait = s.tracker.fetch_wait_s, s._pace_wait_s
+    st = s.stats()
+    down = clean_shutdown(s)
+    sync()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    by_thread = kernels.launch_counts_by_thread()
+
+    tracked = np.array([p is not None for p in poses])
+    first = int(np.argmax(tracked)) if tracked.any() else -1
+    ate = trajectory_ate(poses, gt, evaluate)
+    skip = set(prof_frames) if prof is not None else set()
+    tt = np.array([s.track_times[j] for j in range(warm, n) if j not in skip]) * 1e3
+    wall_w = t_end - t_warm[0]
+    m, go = s.mapper, s.global_optimizer
+    inserted = max(s.map_db.n_kfs - 2, 1)
+    per_frame = {k: v / max(int(tracked.sum()), 1) for k, v in counts.items()}
+    prof_sum = (window_summary(prof, prof_wall, len(prof_frames), float(np.median(tt)))
+                if prof is not None else None)
+    # host ms of the feed's phases (dispatch and finish include their waits
+    # for the map lock), median and p90
+    pipe_ms = {k: [float(np.median(v) * 1e3), float(np.percentile(v, 90) * 1e3)]
+               for k, v in s.pipe_stats.items() if v}
+    out = dict(
+        frames=n, depth=depth, warmup=warm, first_tracked=first,
+        tracked_share=float(tracked.mean()), ate_sim3_m=ate,
+        keyframes=st["num_keyframes"], keyframes_inserted=s.map_db.n_kfs,
+        keyframes_culled=m.kfs_culled, landmarks=st["num_landmarks"],
+        fused_frames=st["fused_frames"], classic_frames=n - st["fused_frames"],
+        track_ms_median_after_40=float(np.median(tt)),
+        track_ms_p90_after_40=float(np.percentile(tt, 90)),
+        wall_fps_after_40=(n - warm) / wall_w,
+        decomposition=dict(wall_s=wall_w, fetch_wait_s=fetch_wait, pace_wait_s=pace_wait,
+                           host_other_s=max(wall_w - fetch_wait - pace_wait, 0.0)),
+        pipe_ms_median_p90=pipe_ms, pace_waits=st["pace_waits"], pace_timeouts=st["pace_timeouts"],
+        pace_wait_max_s=st["pace_wait_max_s"], stale_discards=st["stale_discards"],
+        pred_hist_misses=st["pred_hist_misses"], local_ba_runs=m.ba_runs,
+        local_ba_skipped=m.ba_skipped,
+        local_ba_ms_mean=m.ba_wall_s / max(m.ba_runs, 1) * 1e3,
+        mapping_ms_per_keyframe=sum(m.phase_s.values()) / inserted * 1e3,
+        mapping_phase_ms_per_keyframe={k: v / inserted * 1e3 for k, v in m.phase_s.items()},
+        loop_checks_run=go.loop_checks_run, loops_closed=go.num_loops_closed,
+        loop_stale_discards=go.loop_stale_discards, overflow=st["overflow"],
+        shutdown=down, wall_s_with_shutdown=wall, launches=counts,
+        launches_by_thread=by_thread, launches_per_tracked_frame=per_frame,
+        profile_frames_120_129=prof_sum)
+    log(f"System async (depth {depth}): first pose at frame {first}, tracked "
+        f"{tracked.mean():.3f}, ATE(sim3) {ate:.4f} m, {st['num_keyframes']} keyframes "
+        f"({s.map_db.n_kfs} inserted), fused {st['fused_frames']}; per-frame ms median "
+        f"{out['track_ms_median_after_40']:.2f} p90 {out['track_ms_p90_after_40']:.2f} after "
+        f"frame {warm}; wall {out['wall_fps_after_40']:.2f} frames/s after frame {warm}; "
+        f"decomposition {out['decomposition']}; feed phases ms (median, p90) {pipe_ms}")
+    log(f"System async: pace waits {st['pace_waits']} (timeouts {st['pace_timeouts']}, max "
+        f"{st['pace_wait_max_s']:.3f} s), stale discards {st['stale_discards']}, prediction "
+        f"history misses {st['pred_hist_misses']}; local BA {m.ba_runs} runs "
+        f"({m.ba_skipped} skipped on a backlog) at "
+        f"{out['local_ba_ms_mean']:.1f} ms; mapping {out['mapping_ms_per_keyframe']:.1f} ms per "
+        f"keyframe; loop checks {go.loop_checks_run}; launches per tracked frame "
+        f"{ {k: round(v, 3) for k, v in per_frame.items()} }; by thread {by_thread}; "
+        f"shutdown {down}")
+    if prof_sum is not None:
+        log(f"System async profile (frames 120-129): {prof_sum}")
+
+    if first < 0 or first > 15:
+        fail(f"System async: no pose by frame 15 (first {first})")
+    if tracked.mean() < 0.90:
+        fail(f"System async: tracked share {tracked.mean():.3f} below 0.90")
+    if not ate <= 0.05:
+        fail(f"System async: ATE(sim3) {ate:.4f} m above 0.05 m")
+    if st["pace_timeouts"]:
+        fail(f"System async: {st['pace_timeouts']} pace timeouts")
+    if not shutdown_ok(down):
+        fail(f"System async: unclean shutdown or a worker exception: {down}")
+    if min(counts.values()) == 0:
+        fail(f"System async did not launch every kernel: {counts}")
+    return out, counts
+
+
+def async_loop_phase(dev, frames, depth: int = ASYNC_LOOP_DEPTH):
+    """Phase 6b: phase 6's path (``frames``: a sequence of images, the view
+    to relocalize on and the ground truth, as ``loop_frames`` returns them;
+    a ``LapRender`` renders each image as the feed reads it) through the
+    async System and ``feed_sequence(depth)``; the System settles, then 3
+    blank frames and up to 3 relocalization attempts as in phase 6.  Phase
+    6's gates, with the loop closed on the loop worker's thread and K2
+    launched from it.  Returns (summary dict, launch counts of the run)."""
+    import torch
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.module.tracking_module import TrackerState
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate
+
+    cfg = Config.from_dict(loop_config_dict())
+    cam = cfg.camera
+    imgs, revisit, gt = frames
+    n = len(imgs)
+    s = System(cfg, async_mapping=True, device=dev)
+    go = s.global_optimizer
+    # which thread corrects each loop (the wrapped function is the one the
+    # module calls; no hook in the package)
+    closers, correct = [], go.correct_loop
+
+    def spy_correct(*a, **kw):
+        closers.append(threading.current_thread().name)
+        return correct(*a, **kw)
+
+    go.correct_loop = spy_correct
+    s.startup()
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    poses = [p for _, p in s.feed_sequence(((imgs[i], i / 20.0) for i in range(n)),
+                                           kind="monocular", depth=depth)]
+    lap_wall = time.perf_counter() - t
+    settle_s = settle(s)
+    sync()
+    counts_lap = kernels.launch_counts()
+    by_thread_lap = kernels.launch_counts_by_thread()
+    blank = np.zeros((cam.rows, cam.cols), np.uint8)
+    for i in range(3):
+        s.feed_monocular_frame(blank, (n + i) / 20.0)
+    lost = s.tracker.state == TrackerState.LOST
+    reloc_ms, attempts, reloc_pose = [], 0, None
+    for a in range(3):
+        sync()
+        t = time.perf_counter()
+        reloc_pose = s.feed_monocular_frame(revisit, (n + 3 + a) / 20.0)
+        sync()
+        reloc_ms.append((time.perf_counter() - t) * 1e3)
+        attempts += 1
+        if reloc_pose is not None:
+            break
+    st = s.stats()
+    down = clean_shutdown(s)
+    sync()
+    counts = kernels.launch_counts()
+    by_thread = kernels.launch_counts_by_thread()
+
+    tracked = np.array([p is not None for p in poses])
+    first = int(np.argmax(tracked)) if tracked.any() else -1
+    share = float(tracked[first:].mean()) if first >= 0 else 0.0
+    db = s.map_db
+    ids = db.valid_kf_ids()
+    kf_ate = keyframe_ate(db, gt, evaluate)
+    ate_gate = LOOP_ATE_MARGIN * LOOP_REF_KF_ATE_M
+    loop_edge = any(db.loop_edges[int(k)] for k in ids)
+    _, comp, comp_mask = s.composed_poses()
+    dc = dR = None
+    ri = revisit_index(n)
+    if reloc_pose is not None and comp_mask[ri]:
+        ref = comp[ri]
+        dc = float(np.linalg.norm(-reloc_pose[:3, :3].T @ reloc_pose[:3, 3]
+                                  + ref[:3, :3].T @ ref[:3, 3]))
+        dR = float(np.linalg.norm(reloc_pose[:3, :3] - ref[:3, :3]))
+    tm = {k: [x * 1e3 for x in v] for k, v in go.timings.items()}
+    k2_worker = by_thread.get("global-opt", {}).get("projection_match", 0)
+    out = dict(
+        frames=n, depth=depth, first_tracked=first, tracked_share_after_first=share,
+        keyframes=int(len(ids)), landmarks=int(len(db.valid_lm_ids())),
+        keyframe_ate_sim3_m=kf_ate, keyframe_ate_gate_m=ate_gate,
+        loops_closed=go.num_loops_closed, loops_closed_on=closers, loop_edge=loop_edge,
+        loop_checks_run=go.loop_checks_run, loop_cands_seen=go.loop_cands_seen,
+        loop_validations=go.loop_validations, loop_stale_discards=go.loop_stale_discards,
+        stale_discards=st["stale_discards"], pace_timeouts=st["pace_timeouts"],
+        pred_hist_misses=st["pred_hist_misses"], local_ba_runs=s.mapper.ba_runs,
+        local_ba_skipped=s.mapper.ba_skipped,
+        loop_check_ms_mean=float(np.mean(tm["check"])) if tm["check"] else None,
+        loop_check_ms_max=float(np.max(tm["check"])) if tm["check"] else None,
+        validation_ms=tm["validate"], pose_graph_ms=tm["pose_graph"], global_ba_ms=tm["global_ba"],
+        lost_after_blanks=lost, reloc_attempts=attempts, reloc_ok=reloc_pose is not None,
+        reloc_ms_per_attempt=reloc_ms, reloc_centre_diff=dc, reloc_rot_diff=dR,
+        lap_wall_s=lap_wall, lap_per_frame_ms_median=float(np.median(s.track_times[:n]) * 1e3),
+        settle_s=settle_s, shutdown=down, launches_lap=counts_lap,
+        launches_lap_by_thread=by_thread_lap, launches_by_thread=by_thread,
+        launches_per_lap_frame={k: v / n for k, v in counts_lap.items()},
+        k2_launches_on_loop_worker=k2_worker)
+    log(f"Loop async ({n} frames, depth {depth}): first pose {first}, tracked {share:.3f}, {len(ids)} "
+        f"keyframes, KF ATE(sim3) {kf_ate:.4f} m (gate {ate_gate:.3f} m), loops closed "
+        f"{go.num_loops_closed} on {closers} (edge {loop_edge}); checks {go.loop_checks_run} at "
+        f"{out['loop_check_ms_mean']} ms mean, candidates {go.loop_cands_seen}, validations "
+        f"{go.loop_validations}, loop stale discards {go.loop_stale_discards}; validation ms "
+        f"{[round(x, 1) for x in tm['validate']]}; pose graph ms {tm['pose_graph']}; global BA ms "
+        f"{tm['global_ba']}; lap wall {lap_wall:.1f}s, settled in {settle_s:.2f}s; launches "
+        f"{counts_lap}, by thread {by_thread_lap}")
+    log(f"Loop async relocalization: lost after blanks {lost}; {attempts} attempts, ok "
+        f"{reloc_pose is not None}, ms {[round(x, 1) for x in reloc_ms]}; centre diff {dc}, "
+        f"rotation diff {dR}; shutdown {down}")
+
+    if first < 0 or first >= 15:
+        fail(f"Loop async: no pose before frame 15 (first {first})")
+    if share < 0.90:
+        fail(f"Loop async: tracked share {share:.3f} below 0.90")
+    if go.num_loops_closed < 1 or not loop_edge or "global-opt" not in closers:
+        fail(f"Loop async: no loop closed by the loop worker (closed on {closers})")
+    if not kf_ate <= ate_gate:
+        fail(f"Loop async: keyframe ATE(sim3) {kf_ate:.4f} m above {ate_gate:.3f} m")
+    if not lost:
+        fail("Loop async: tracking not lost after the blank frames")
+    if reloc_pose is None:
+        fail("Loop async: no relocalization within 3 attempts")
+    if dc is None or dc >= 0.15 or dR >= 0.1:
+        fail(f"Loop async: relocalized pose off the frame-{ri} estimate (centre {dc}, "
+             f"rotation {dR})")
+    if not shutdown_ok(down):
+        fail(f"Loop async: unclean shutdown or a worker exception: {down}")
+    if min(counts.values()) == 0 or k2_worker == 0:
+        fail(f"Loop async: a kernel was not launched (K2 on the loop worker {k2_worker}): "
+             f"{counts}")
     return out, counts
 
 
@@ -1115,22 +1511,41 @@ def main() -> int:
             fail("TrackStep on the GPU disagrees with the plain CPU path")
 
     # ---------------------------------------------------------------- 5
-    sys_out, sys_counts = system_phase(dev)
+    sys_frames = system_frames(system_config().camera)
+    sys_out, sys_counts = system_phase(dev, frames=sys_frames)
 
     # ---------------------------------------------------------------- 6
-    loop_out, loop_counts = loop_phase(dev)
+    from openvslam_tpu_torch.config import Config
+
+    lap_frames = loop_frames(Config.from_dict(loop_config_dict()).camera)
+    loop_out, loop_counts = loop_phase(dev, frames=lap_frames)
+
+    del lap_frames
+
+    # ---------------------------------------------------------------- 5b
+    async_out, async_counts = async_system_phase(dev, sys_frames)
+    del sys_frames
+
+    # ---------------------------------------------------------------- 6b
+    lap = LapRender(Config.from_dict(loop_config_dict()).camera, ASYNC_LOOP_FRAMES)
+    aloop_out, aloop_counts = async_loop_phase(
+        dev, (lap, lap[revisit_index(ASYNC_LOOP_FRAMES)], lap.gt))
 
     # ---------------------------------------------------------------- out
     kernels_out = []
     for key, r in report.items():
         kernels_out.append(dict(
-            r, launches=fs_counts[key] + ts_counts[key] + sys_counts[key] + loop_counts[key],
+            r, launches=(fs_counts[key] + ts_counts[key] + sys_counts[key] + loop_counts[key]
+                         + async_counts[key] + aloop_counts[key]),
             launches_framestep=fs_counts[key], launches_trackstep=ts_counts[key],
             launches_system=sys_counts[key],
             launches_system_per_tracked_frame=sys_out["launches_per_tracked_frame"][key],
-            launches_loop=loop_counts[key]))
+            launches_loop=loop_counts[key], launches_system_async=async_counts[key],
+            launches_system_async_per_tracked_frame=async_out["launches_per_tracked_frame"][key],
+            launches_loop_async=aloop_counts[key]))
         log(f"kernel {r['name']}: launches FrameStep {fs_counts[key]} TrackStep {ts_counts[key]} "
-            f"System {sys_counts[key]} Loop {loop_counts[key]}; max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
+            f"System {sys_counts[key]} Loop {loop_counts[key]} System async {async_counts[key]} "
+            f"Loop async {aloop_counts[key]}; max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
             f"({r['ms_kernel_only']:.4f} ms kernel alone) vs plain {r['plain_ms']:.3f} ms; "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     print(json.dumps({"profile": {"framestep": fs_prof, "trackstep": ts_prof,
@@ -1148,9 +1563,17 @@ def main() -> int:
                    loop_loops_closed=loop_out["loops_closed"],
                    loop_keyframe_ate_sim3_m=loop_out["keyframe_ate_sim3_m"],
                    loop_reloc_attempts=loop_out["reloc_attempts"],
+                   system_async_track_ms_median=async_out["track_ms_median_after_40"],
+                   system_async_track_ms_p90=async_out["track_ms_p90_after_40"],
+                   system_async_wall_fps=async_out["wall_fps_after_40"],
+                   system_async_ate_sim3_m=async_out["ate_sim3_m"],
+                   loop_async_loops_closed=aloop_out["loops_closed"],
+                   loop_async_keyframe_ate_sim3_m=aloop_out["keyframe_ate_sim3_m"],
                    seconds=time.perf_counter() - T0)
     print(json.dumps({"system": sys_out}), flush=True)
     print(json.dumps({"loop": loop_out}), flush=True)
+    print(json.dumps({"system_async": async_out}), flush=True)
+    print(json.dumps({"loop_async": aloop_out}), flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(card, flush=True)

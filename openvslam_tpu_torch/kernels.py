@@ -8,7 +8,10 @@ with ``nvcc`` for ``sm_90a`` into one shared library per source under
 parallel) and bound with ``ctypes``.  Nothing here runs at import time.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the CUDA
-kernel; the plain PyTorch versions never touch it.
+kernel (``count_launch``, under a lock: the tracking thread and the loop
+worker launch kernels at the same time), and ``launch_counts_by_thread``
+splits the same counts by the launching thread's name; the plain PyTorch
+versions never touch them.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # K1 (now the fused detect kernel) keeps its first key, so launch records line up
 LAUNCHES = {"fast_score_maps": 0, "projection_match": 0, "pose_lm": 0}
+_BY_THREAD: dict = {}           # thread name -> {kernel: launches}
+_count_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,13 +68,29 @@ _libs: dict = {}
 BUILD_LOG: dict = {}
 
 
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` by the calling thread."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        per = _BY_THREAD.setdefault(threading.current_thread().name, dict.fromkeys(LAUNCHES, 0))
+        per[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        _BY_THREAD.clear()
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
+
+
+def launch_counts_by_thread() -> dict:
+    with _count_lock:
+        return {t: dict(c) for t, c in _BY_THREAD.items()}
 
 
 def _nvcc() -> str:

@@ -1,16 +1,37 @@
-"""Global optimization module, synchronous (counterpart of
+"""Global optimization module (counterpart of
 ``openvslam_tpu/module/global_optimization_module.py``; ref
 ``global_optimization_module.*``): BoW registration of every keyframe, loop
 detection -> Sim3 validation -> loop correction (pose and landmark
 propagation, duplicate merge) -> Sim3 pose graph -> global BA.
 
-The loop pipeline runs inline in ``queue_keyframe``, called by the mapping
-module after each keyframe (the JAX package's synchronous mode).  Not
-ported here: the loop worker thread, the background global BA and the
-compile-bucket prewarming of the async mode.
+Synchronous by default: the loop pipeline runs inline in
+``queue_keyframe``, called by the mapping module after each keyframe.  In
+async mode (``start_loop_worker``; the System starts it) a dedicated worker
+thread on its own CUDA stream consumes the keyframe queue: it registers the
+whole backlog's BoW vectors in one batch, then checks each keyframe.
+Detection and the candidates' snapshots run under the map lock, the Sim3
+validation without it; a correction pauses the mapping worker, re-takes the
+lock and is discarded (``loop_stale_discards``) if a geometry rewrite
+landed during the validation.  With ``async_global_ba`` the global BA after
+a correction solves on a thread of its own and splices its result onto the
+map as it is then (keyframes and landmarks born meanwhile move with their
+snapshotted ancestors).  A newer correction supersedes a global BA still
+running: its result is discarded (``gba_superseded``; ref: a new loop
+aborts the running loop BA).  The reference joins the running one there,
+under the map lock that the running one needs to apply its result.
+
+The reference's two backlog behaviours are carried as they are: the worker
+registers its whole backlog before it checks the oldest keyframe (so newer
+keyframes of the same place take part in that check's candidate gate), and
+culled keyframes leave the BoW database only at the next registration.
+
+Not ported: the compile-bucket prewarming (the port compiles nothing per
+shape).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Dict, Optional, Set
 
@@ -22,6 +43,7 @@ from ..device import resolve_device
 from ..optimize.ba import BAProblem, make_global_ba
 from ..optimize.pose_graph import PoseGraphProblem, make_pose_graph_optimizer
 from ..utils.log import get_logger
+from ..utils.threads import WorkerFaults, on_stream, sync_current_stream, worker_stream
 from .loop_detector import LoopDetector
 from .relocalizer import Relocalizer
 
@@ -44,6 +66,9 @@ class GlobalOptimizationModule:
         else:
             vocab = load_vocabulary(vocab_path)
         self.bow_db = BowDatabase(vocab, map_db, device=self.device)
+        # the vocabulary's device tensors exist before any worker starts
+        # (a worker's stream waits for the uploads queued so far)
+        vocab.idf_on(self.device)
         self.loop_detector = LoopDetector(cfg, cam, map_db, self.bow_db, fix_scale,
                                           device=self.device)
         self.relocalizer = Relocalizer(cfg, cam, map_db, self.bow_db, device=self.device)
@@ -61,6 +86,23 @@ class GlobalOptimizationModule:
         self.loop_checks_run = 0
         self.loop_cands_seen = 0
         self.loop_validations = 0
+        self.loop_stale_discards = 0
+        # async mode: the map lock and the mapping proxy (set by the System),
+        # the loop worker and its queue, the background global BA, and the
+        # exceptions the threads raised
+        self.map_lock = None
+        self.mapper_proxy = None
+        self.async_global_ba = False
+        self.faults = WorkerFaults()
+        self._gba_threads: list = []      # background global BAs, the latest last
+        self._gba_gen = 0                 # generation of the latest global BA
+        self.gba_superseded = 0
+        self._loop_thread: Optional[threading.Thread] = None
+        self._loop_queue: list = []
+        self._loop_busy = 0            # keyframes taken off the queue, not yet checked
+        self._loop_qlock = threading.Lock()
+        self._loop_wake = threading.Event()
+        self._loop_stop = False
         nl = cfg.feature.num_levels
         sf = cfg.feature.scale_factor
         self.sigma2 = np.array([sf ** (2 * l) for l in range(nl)], np.float32)
@@ -71,6 +113,8 @@ class GlobalOptimizationModule:
 
     def reset(self, map_db):
         """Start over on ``map_db``: an empty BoW database and no loop state."""
+        with self._loop_qlock:
+            self._loop_queue.clear()
         self.db = map_db
         self.bow_db.map_db = map_db
         self.bow_db.clear()
@@ -80,14 +124,22 @@ class GlobalOptimizationModule:
         self.relocalizer.last_reloc_kf = -1
         self.last_loop_kf = -1
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _lock(self):
+        return self.map_lock if self.map_lock is not None else contextlib.nullcontext()
 
     # ------------------------------------------------------------------
     def queue_keyframe(self, kf: int):
-        """Called by the mapping module for every new keyframe: register its
-        BoW vector, then run the loop pipeline inline."""
+        """Called by the mapping module for every new keyframe (under the
+        map lock in async mode).  Synchronous: register its BoW vector, then
+        run the loop pipeline inline.  With the loop worker running: hand
+        the keyframe to it; the worker registers it in processing order (ref:
+        the loop detector adds keyframes to the BoW database on its own
+        thread)."""
+        if self._loop_thread is not None:
+            with self._loop_qlock:
+                self._loop_queue.append(kf)
+            self._loop_wake.set()
+            return
         self._register_bow(kf)
         if self.loop_enabled:
             self._loop_check(kf)
@@ -107,11 +159,100 @@ class GlobalOptimizationModule:
         db = self.db
         return 0 <= kf < db.n_kfs and bool(db.kf_valid[kf])
 
+    # ------------------------------------------------------------------
+    # the loop worker (async mode)
+    # ------------------------------------------------------------------
+    def start_loop_worker(self):
+        if self._loop_thread is not None:
+            return
+        self._loop_stop = False
+        self._loop_thread = threading.Thread(target=self._loop_worker, daemon=True,
+                                             name="global-opt")
+        self._loop_thread.start()
+
+    def stop_loop_worker(self, timeout: float = 120.0):
+        """Check the keyframes still queued, then stop (System.shutdown).
+        Raises TimeoutError if the worker is still running after
+        ``timeout`` seconds."""
+        t = self._loop_thread
+        if t is None:
+            return
+        self._loop_stop = True
+        self._loop_wake.set()
+        t.join(timeout)
+        if t.is_alive():
+            raise TimeoutError(f"loop worker still running after {timeout} s")
+        self._loop_thread = None
+
+    @property
+    def loop_backlog(self) -> int:
+        """Keyframes queued for the loop worker."""
+        with self._loop_qlock:
+            return len(self._loop_queue)
+
+    @property
+    def loop_idle(self) -> bool:
+        """Nothing queued for the loop worker and nothing being checked."""
+        with self._loop_qlock:
+            return not self._loop_queue and not self._loop_busy
+
+    def _loop_worker(self):
+        stream = worker_stream(self.device)
+        with on_stream(stream):
+            while True:
+                self._loop_wake.wait(timeout=0.2)
+                with self._loop_qlock:
+                    if not self._loop_queue:
+                        self._loop_wake.clear()
+                        if self._loop_stop:
+                            return
+                        continue
+                    # the whole backlog: one batched BoW registration
+                    pending = self._loop_queue[:]
+                    self._loop_queue.clear()
+                    self._loop_busy = len(pending)
+                try:
+                    self._register_pending(pending)
+                except Exception:
+                    self.faults.record("loop worker: batch BoW registration")
+                for kf in pending:
+                    try:
+                        self._loop_check(kf)
+                    except Exception:
+                        self.faults.record(f"loop worker: check of keyframe {kf}")
+                    with self._loop_qlock:
+                        self._loop_busy -= 1
+
+    def _register_pending(self, pending: list):
+        """Register the pending keyframes in the BoW database in processing
+        order: descriptors copied under the map lock, one batched word
+        assignment and tf-idf pass without it, dictionary inserts under it."""
+        db = self.db
+        with self._lock():
+            todo = [k for k in pending if self._kf_ok(k) and not self._registered(k)]
+            if todo:
+                desc_b = np.stack([db.kf_desc_i8[k] for k in todo])
+                valid_b = np.stack([db.kf_kpt_valid[k] for k in todo])
+        if not todo:
+            return
+        words_b = self.bow_db.compute_words_batch(desc_b, valid_b)
+        vecs_b = self.bow_db.bow_vecs_batch(words_b)
+        with self._lock():
+            for k in [k for k in self.bow_db.kf_words if not db.kf_valid[k]]:
+                self.bow_db.remove_keyframe(k)
+            sel = [i for i, k in enumerate(todo) if self._kf_ok(k) and not self._registered(k)]
+            self.bow_db.add_keyframes_batch([todo[i] for i in sel], words_b[sel], vecs_b[sel])
+
+    def _registered(self, kf: int) -> bool:
+        return kf in self.bow_db.kf_words
+
+    # ------------------------------------------------------------------
     def _loop_check(self, kf: int):
         """Loop pipeline for one keyframe: detect -> Sim3 validate -> correct."""
-        if kf - self.last_loop_kf < 10:   # cooldown (ref: 10 keyframes)
+        on_worker = self._loop_thread is not None
+        if on_worker and (not self._registered(kf) or not self.loop_enabled):
             return
-        if not self._kf_ok(kf):
+        if kf - self.last_loop_kf < 10:   # cooldown (ref: 10 keyframes)
             return
         t0 = time.perf_counter()
         try:
@@ -120,14 +261,24 @@ class GlobalOptimizationModule:
             self.timings["check"].append(time.perf_counter() - t0)
 
     def _check(self, kf: int):
-        candidates = self.loop_detector.detect(kf)
+        """Detection and the candidates' snapshots under the map lock, the
+        Sim3 validations without it; a validated loop is corrected with the
+        mapper paused (ref: loop correction pauses mapping, not tracking)
+        and under the lock, or discarded if the map geometry moved since
+        the snapshot."""
+        lock = self._lock()
+        with lock:
+            if not self._kf_ok(kf):
+                return
+            candidates = self.loop_detector.detect(kf)
         self.loop_checks_run += 1
         if not candidates:
             return
         self.loop_cands_seen += len(candidates)
         _log.info("loop candidates for keyframe %d: %s", kf, candidates)
-        pairs = [(c, self.loop_detector.snapshot(kf, c)) for c in candidates
-                 if self._kf_ok(kf) and self._kf_ok(c)]
+        with lock:
+            pairs = [(c, self.loop_detector.snapshot(kf, c)) for c in candidates
+                     if self._kf_ok(kf) and self._kf_ok(c)]
         if not pairs:
             return
         counts = self.loop_detector.prefilter_counts([s for _, s in pairs])
@@ -146,9 +297,26 @@ class GlobalOptimizationModule:
             R, t, s, _, _, lms_k, lms_c = out
             _log.info("loop detected: keyframe %d <-> %d (scale %.3f); correcting",
                       kf, cand, float(s))
-            self.correct_loop(kf, cand, (R, t, s), lms_k, lms_c)
-            self.last_loop_kf = kf
-            self.num_loops_closed += 1
+            # pause the mapper without the lock held (its keyframe in
+            # flight needs the lock to finish), then correct under the lock
+            proxy = self.mapper_proxy
+            if proxy is not None:
+                proxy.pause(wait=True)
+            try:
+                with lock:
+                    if self.db.geom_version != snap["geom_version"]:
+                        self.loop_stale_discards += 1
+                        _log.info("loop Sim3 %d <-> %d discarded (map geometry moved during "
+                                  "the validation)", kf, cand)
+                        continue
+                    if not (self._kf_ok(kf) and self._kf_ok(cand)):
+                        continue
+                    self.correct_loop(kf, cand, (R, t, s), lms_k, lms_c)
+                    self.last_loop_kf = kf
+                    self.num_loops_closed += 1
+            finally:
+                if proxy is not None:
+                    proxy.resume()
             _log.info("loop %d closed (pose graph + global BA)", self.num_loops_closed)
             return
 
@@ -216,14 +384,11 @@ class GlobalOptimizationModule:
         db.add_loop_edge(kf, cand)
         t0 = time.perf_counter()
         self._optimize_pose_graph(fixed_kf=cand)
-        self._sync()
+        sync_current_stream(self.device)
         self.timings["pose_graph"].append(time.perf_counter() - t0)
         # 60 LM steps, not the reference's 10: each takes an inexact
         # (PCG-truncated) Schur step where g2o's takes an exact one
-        t0 = time.perf_counter()
         self.run_global_ba(iters=GLOBAL_BA_ITERS)
-        self._sync()
-        self.timings["global_ba"].append(time.perf_counter() - t0)
         db.version += 1
 
     # ------------------------------------------------------------------
@@ -326,26 +491,78 @@ class GlobalOptimizationModule:
 
     # ------------------------------------------------------------------
     def loop_BA_is_running(self) -> bool:
-        """The global BA runs inline in this synchronous module."""
-        return False
+        return any(t.is_alive() for t in self._gba_threads)
+
+    def join_global_ba(self, timeout: float = 120.0):
+        """Wait for the background global BAs (a superseded one may still
+        be solving); raises TimeoutError if one is still running after
+        ``timeout`` seconds.  Call it without the map lock held: a global
+        BA applies its result under the lock."""
+        deadline = time.monotonic() + timeout
+        for t in list(self._gba_threads):
+            t.join(max(deadline - time.monotonic(), 0.0))
+            if t.is_alive():
+                raise TimeoutError(f"global BA still running after {timeout} s")
+        self._gba_threads = []
 
     def run_global_ba(self, iters: int = GLOBAL_BA_ITERS):
-        """Full-map BA after a loop correction (ref loop_bundle_adjuster),
-        synchronous."""
+        """Full-map BA after a loop correction (ref loop_bundle_adjuster).
+        Synchronous by default; with ``async_global_ba`` the solve runs on a
+        thread of its own, on the problem built now, and its result is
+        applied under the map lock unless ``abort_global_ba`` was set
+        meanwhile (ref global_optimization_module::run_loop_BA)."""
         if self.abort_global_ba:
             self.abort_global_ba = False
             return
         built = self._build_global_ba()
         if built is None:
             return
-        _log.info("global BA: %d keyframes, %d landmarks, %d iters",
-                  len(built["cam_index"]), len(built["lm_index"]), iters)
+        _log.info("global BA: %d keyframes, %d landmarks, %d iters (%s)",
+                  len(built["cam_index"]), len(built["lm_index"]), iters,
+                  "async" if self.async_global_ba else "sync")
         ba = self.global_ba if iters == GLOBAL_BA_ITERS else make_global_ba(
             self.cam, iters=iters, cg_iters=GLOBAL_BA_CG_ITERS)
+        if not self.async_global_ba:
+            t0 = time.perf_counter()
+            self._apply_global_ba(self._solve_global_ba(ba, built), built)
+            self.timings["global_ba"].append(time.perf_counter() - t0)
+            return
+        self._gba_gen += 1
+        gen = self._gba_gen
+
+        def _worker():
+            try:
+                with on_stream(worker_stream(self.device)):
+                    t0 = time.perf_counter()
+                    out = self._solve_global_ba(ba, built)       # no lock held
+                    with self._lock():
+                        if gen != self._gba_gen:
+                            self.gba_superseded += 1
+                            _log.info("global BA superseded by a newer correction; result "
+                                      "discarded")
+                            return
+                        if self.abort_global_ba:
+                            self.abort_global_ba = False
+                            _log.info("global BA aborted; result discarded")
+                            return
+                        self._apply_global_ba(out, built)
+                        self.db.version += 1
+                    self.timings["global_ba"].append(time.perf_counter() - t0)
+            except Exception:
+                self.faults.record("background global BA")
+
+        t = threading.Thread(target=_worker, daemon=True, name="global-ba")
+        self._gba_threads = [x for x in self._gba_threads if x.is_alive()] + [t]
+        t.start()
+
+    def _solve_global_ba(self, ba, built):
+        """(T_cw, X) of the global BA on ``built``'s problem, on the host."""
         res = ba(BAProblem(*(torch.as_tensor(a, device=self.device) for a in built["prob"])))
-        T_new, X_new = res.T_cw.cpu().numpy(), res.X.cpu().numpy()
+        return res.T_cw.cpu().numpy(), res.X.cpu().numpy()
+
+    def _apply_global_ba(self, out, built):
         apply_ba_writeback(self.db, built["cam_index"], built["lm_index"], built["cam_opt"],
-                           T_new, X_new)
+                           *out)
 
     def _build_global_ba(self):
         """The global BA problem over every valid keyframe and landmark as

@@ -9,13 +9,21 @@ TrackStep (K1, K2, K3) on the common path.  The strategy order follows the
 reference: motion-model match -> (fallback) BoW match vs the reference
 keyframe -> (fallback) descriptor match vs the last frame -> local-map
 tracking -> keyframe-insertion decision; a lost track relocalizes through
-the BoW database (``module/relocalizer.py``).
+the BoW database (``module/relocalizer.py``).  With no mapper
+(localization mode) the map stays frozen: no keyframe is inserted.
 
-Not ported here: stereo/RGB-D bootstrap and the pipelined feed's
-multi-frame prediction (every dispatch here predicts one frame ahead).
+The fused step splits into ``track_fused_dispatch`` (build the tables,
+launch, start the copies of the outputs to the host) and
+``track_fused_finish`` (wait for the copies, host bookkeeping), so the
+System's pipelined feed keeps several steps in flight; a step dispatched
+``lead`` frames past the last finished one predicts its pose with the
+damped lead-N twist of ``_predict_pose``.
+
+Not ported here: stereo/RGB-D bootstrap.
 """
 from __future__ import annotations
 
+import collections
 import enum
 import time
 from typing import Optional
@@ -48,14 +56,53 @@ def _u32_as_i32(desc: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(desc).view(np.int32)
 
 
+def _se3_log(T: np.ndarray) -> np.ndarray:
+    """4x4 rigid transform -> twist (w[3], v[3]), host numpy (the motion
+    model's per-frame prediction; a device call would cost more)."""
+    R = T[:3, :3].astype(np.float64)
+    t = T[:3, 3].astype(np.float64)
+    cos = np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(cos)
+    if th < 1e-8:
+        w = 0.5 * np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+        return np.concatenate([w, t])
+    w = th / (2.0 * np.sin(th)) * np.array(
+        [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    # V^-1 = I - K*th/2 + (1 - th/(2 tan(th/2))) K^2
+    Vinv = np.eye(3) - 0.5 * th * K + (1.0 - th / (2.0 * np.tan(th / 2.0))) * (K @ K)
+    return np.concatenate([w, Vinv @ t])
+
+
+def _se3_exp(xi: np.ndarray) -> np.ndarray:
+    """twist (w[3], v[3]) -> 4x4 rigid transform (numpy; see _se3_log)."""
+    w, v = xi[:3], xi[3:]
+    th = np.linalg.norm(w)
+    T = np.eye(4)
+    if th < 1e-8:
+        T[:3, 3] = v
+        T[:3, :3] += np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        return T
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    s, c = np.sin(th), np.cos(th)
+    T[:3, :3] = np.eye(3) + s * K + (1 - c) * (K @ K)
+    V = np.eye(3) + (1 - c) / th * K + (th - s) / th * (K @ K)
+    T[:3, 3] = V @ v
+    return T
+
+
 class TrackingModule:
     LOCAL_LM_CAP = 4096          # padded local-map landmark capacity
     # keyframe decay rule (cond_d): insert when the tracked count falls
     # below this fraction of its post-KF peak
     KF_PEAK_DECAY = 0.5
+    # damped lead-N prediction window W = PRED_WINDOW_MULT * lead (see
+    # _predict_pose)
+    PRED_WINDOW_MULT = 2
     INIT_SEED = 42
 
-    def __init__(self, cfg, cam, map_db, mapper, relocalizer=None, device="cuda"):
+    def __init__(self, cfg, cam, map_db, mapper=None, relocalizer=None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cam = cam
@@ -73,8 +120,11 @@ class TrackingModule:
         self.num_levels = nl
         # capacity-overflow accounting
         self.overflow: dict = {}
-        # seconds spent reading fused-step results back to the host
+        # seconds the tracking thread waited for fused-step results
         self.fetch_wait_s = 0.0
+        # lead-N predictions whose history entry was missing (they fell
+        # back to the repeated one-frame velocity, see _predict_pose)
+        self.pred_hist_misses = 0
 
     def reset(self, map_db):
         """Start over on ``map_db``: uninitialized, with no motion model, no
@@ -96,6 +146,15 @@ class TrackingModule:
         self._lost_at: Optional[int] = None
         self._lost_center: Optional[np.ndarray] = None
         self._lost_speed = 0.0
+        # recent (frame_id, pose_cw) of tracked frames for the lead-N
+        # prediction: a dispatch at pipeline depth d looks up the pose
+        # 2(d+1) frames back, and the System clamps d to 31
+        self._pose_hist: collections.deque = collections.deque(maxlen=64)
+
+    def close(self):
+        """Release the device-resident caches (System.shutdown calls this)."""
+        self._lm_cache = None
+        self._frame_dev = None
 
     def _count_overflow(self, what: str, n: int):
         if what not in self.overflow:
@@ -176,11 +235,14 @@ class TrackingModule:
         _log.info("initialized map: two-view bootstrap frames %d/%d, %d landmarks",
                   f1.frame_id, f2.frame_id, int(good.sum()))
         self.velocity = np.eye(4, dtype=np.float32)
+        self._pose_hist.clear()
+        self._record_pose(f2)
         self.num_tracked = int(good.sum())
         # seed the decay rule's peak so the first keyframe after init does
         # not wait a full fps interval
         self._peak_tracked = self.num_tracked
-        self.mapper.after_initialization(kf1, kf2)
+        if self.mapper is not None:
+            self.mapper.after_initialization(kf1, kf2)
         return f2.pose_cw
 
     # ------------------------------------------------------------------
@@ -411,9 +473,48 @@ class TrackingModule:
         self.num_tracked = num_inl
         self._peak_tracked = max(self._peak_tracked, num_inl)
         self.velocity = (frame.pose_cw @ np.linalg.inv(self.last_frame.pose_cw)).astype(np.float32)
+        self._record_pose(frame)
         self.frames_since_reloc += 1
         if self._new_keyframe_needed(frame):
             self._insert_keyframe(frame)
+
+    def _record_pose(self, frame: Frame):
+        self._pose_hist.append((frame.frame_id, frame.pose_cw.copy()))
+
+    def _predict_pose(self, lf: Frame, lead: int) -> np.ndarray:
+        """Constant-velocity pose prediction ``lead`` frames past ``lf``.
+        For lead >= 2 (the pipelined feed) the one-frame velocity must not
+        be applied repeatedly: that multiplies the pose-estimation noise
+        into the prediction, and the prediction -> match -> estimate loop
+        amplifies it every cycle.  The damped form estimates the average
+        per-frame twist over a window W = PRED_WINDOW_MULT * lead in SE3 log
+        space and scales it to ``lead``:
+            xi = log(pose(i-1) pose(i-1-W)^-1) / W
+            T_pred = exp(lead xi) pose(i-1)
+        exact for constant-twist motion, with the window's noise term
+        scaled by lead / W.  The shortest usable window is W = lead (the
+        raw lead-frame displacement); with no history entry in the window
+        the one-frame velocity is applied ``lead`` times and the miss is
+        counted in ``pred_hist_misses``."""
+        if lead >= 2:
+            best_fid = None
+            lo = lf.frame_id - self.PRED_WINDOW_MULT * lead
+            hi = lf.frame_id - lead
+            for fid, pose in self._pose_hist:
+                if lo <= fid <= hi and (best_fid is None or fid < best_fid):
+                    best_fid, best_pose = fid, pose
+            if best_fid is not None:
+                W = lf.frame_id - best_fid
+                D = lf.pose_cw @ np.linalg.inv(best_pose)
+                if W == lead:
+                    return (D @ lf.pose_cw).astype(np.float32)
+                xi = _se3_log(D) * (lead / W)
+                return (_se3_exp(xi) @ lf.pose_cw).astype(np.float32)
+            self.pred_hist_misses += 1
+        T_pred = lf.pose_cw
+        for _ in range(max(1, lead)):
+            T_pred = self.velocity @ T_pred
+        return T_pred.astype(np.float32)
 
     def _bow_match_ref_kf(self, frame: Frame):
         """Word-gated descriptor match against the reference keyframe's
@@ -469,8 +570,12 @@ class TrackingModule:
             image_u8, frame_id, timestamp, step, mask))
 
     def track_fused_dispatch(self, image_u8, frame_id: int, timestamp: float, step, mask=None):
-        """Build the step's tables and launch it; nothing is read back.
-        Returns the in-flight handle for ``track_fused_finish``."""
+        """Build the step's tables, launch it and start copying its outputs
+        to the host; nothing waits for the device.  The motion prediction
+        reaches ``frame_id - last_frame.frame_id`` frames ahead: 1 when fed
+        frame by frame, more in the pipelined feed, which dispatches frames
+        before the earlier ones are finished.  Returns the in-flight handle
+        for ``track_fused_finish``."""
         db = self.map_db
         self._update_last_frame_landmarks()
         lf = self.last_frame
@@ -502,26 +607,46 @@ class TrackingModule:
             posc = np.clip(np.searchsorted(sorted_ids, cand), 0, len(sorted_ids) - 1)
             loc_prev_slot[:len(cand)] = np.where(sorted_ids[posc] == cand, order[posc], -1)
 
-        T_pred = (self.velocity @ lf.pose_cw).astype(np.float32)
+        T_pred = self._predict_pose(lf, max(1, frame_id - lf.frame_id))
         last = LastFrame(self._dev(prev_pos), self._dev(prev_desc), self._dev(prev_valid),
                          self._dev(prev_level))
         local = LocalMap(cache["pos"], cache["desc_u32"], cache["valid"], cache["maxd"],
                          self._dev(loc_prev_slot))
         res = step.step(self._dev(image_u8), mask, self._dev(T_pred), last, local)
-        return {"res": res, "frame_id": frame_id, "timestamp": timestamp,
+        host, ready = self._start_readback(res)
+        return {"res": host, "ready": ready, "frame_id": frame_id, "timestamp": timestamp,
                 "lm_ids": lm_ids, "n": n, "cand": cand, "n_loc": cache["n"],
                 "P": P, "L": step.lm_capacity}
 
+    def _start_readback(self, res):
+        """On the card: copy every output into pinned host memory behind
+        the step on the current stream and record an event after the
+        copies, so the finish waits for this step alone and not for the
+        younger steps queued behind it.  Off the card the outputs already
+        are host tensors."""
+        if self.device.type != "cuda":
+            return res, None
+        host = type(res)(*(torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                           .copy_(x, non_blocking=True) for x in res))
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
     def track_fused_finish(self, handle):
-        """Read the step's result back and run the host bookkeeping
-        (association, counters, velocity, keyframe decision)."""
+        """Wait for an in-flight step's outputs and run the host bookkeeping
+        (association, counters, velocity, keyframe decision).  Between a
+        pipelined dispatch and this finish the mapper may have fused or
+        culled landmarks: fused ones are forwarded to their replacement,
+        culled ones dropped (the stale-map contract of async mapping)."""
         db = self.map_db
         lf = self.last_frame
         lm_ids, n = handle["lm_ids"], handle["n"]
         cand, n_loc = handle["cand"], handle["n_loc"]
         P, L = handle["P"], handle["L"]
         t0 = time.perf_counter()
-        res = type(handle["res"])(*(x.cpu().numpy() for x in handle["res"]))
+        if handle["ready"] is not None:
+            handle["ready"].synchronize()
+        res = type(handle["res"])(*(x.numpy() for x in handle["res"]))
         self.fetch_wait_s += time.perf_counter() - t0
         K = res.kp_xy.shape[0]
         desc_u32 = res.kp_desc_u32.view(np.uint32)
@@ -546,11 +671,18 @@ class TrackingModule:
         comb[:n] = lm_ids
         comb[P:P + n_loc] = cand[:n_loc]
         lm_of_kpt = np.where(src >= 0, comb[np.clip(src, 0, P + L - 1)], -1)
+        # landmarks fused away since the dispatch are forwarded to their
+        # replacement, unless this frame already observes it
+        stale = (lm_of_kpt >= 0) & ~db.lm_valid[np.clip(lm_of_kpt, 0, None)]
+        for j in np.where(stale)[0]:
+            r = db.resolve_replaced(int(lm_of_kpt[j]))
+            lm_of_kpt[j] = -1 if r >= 0 and (lm_of_kpt == r).any() else r
         lm_of_kpt = np.where((lm_of_kpt >= 0) & db.lm_valid[np.clip(lm_of_kpt, 0, None)],
                              lm_of_kpt, -1)
         frame.lm_idx = lm_of_kpt.astype(np.int32)
         frame.outlier = (frame.lm_idx >= 0) & ~res.kp_inlier
         vis_ids = cand[:n_loc][res.loc_visible[:n_loc]]
+        vis_ids = vis_ids[db.lm_valid[vis_ids]]      # culled since the dispatch
         db.lm_n_visible[vis_ids] += 1
         db.lm_n_found[frame.lm_idx[(frame.lm_idx >= 0) & ~frame.outlier]] += 1
 
@@ -563,6 +695,8 @@ class TrackingModule:
     # keyframe insertion (ref module/keyframe_inserter)
     # ------------------------------------------------------------------
     def _new_keyframe_needed(self, frame: Frame) -> bool:
+        if self.mapper is None:
+            return False            # localization mode: the map is frozen
         db = self.map_db
         if self.ref_kf < 0 or self.ref_kf >= len(db.kf_valid) or not db.kf_valid[self.ref_kf]:
             # no live reference keyframe (it was culled): insert one as soon
@@ -580,7 +714,13 @@ class TrackingModule:
         # halves from its post-KF peak so triangulation refills the leading
         # edge early under sustained panning
         cond_d = frames_since >= 1 and self.num_tracked < self.KF_PEAK_DECAY * self._peak_tracked
-        return self.num_tracked > 15 and (cond_a or cond_c or cond_d)
+        enough = self.num_tracked > 15
+        # ref keyframe_inserter: the mapping queue gates insertion.  With
+        # async mapping saturated (>= 2 queued keyframes) new keyframes wait
+        # unless the tracked count decays toward the lost threshold
+        if self.mapper.backlog >= 2:
+            return enough and self.num_tracked < 60
+        return enough and (cond_a or cond_c or cond_d)
 
     def _insert_keyframe(self, frame: Frame):
         kf = self.mapper.insert_keyframe(frame)
@@ -627,6 +767,8 @@ class TrackingModule:
         _log.info("relocalized at frame %d (%d local-map inliers%s)", frame.frame_id, num_inl,
                   ", grace" if gate == self.GRACE_GATE else "")
         self.velocity = np.eye(4, dtype=np.float32)
+        self._pose_hist.clear()
+        self._record_pose(frame)
         # re-anchor on the keyframe the relocalizer matched
         if self.relocalizer.last_reloc_kf >= 0:
             self.ref_kf = self.relocalizer.last_reloc_kf

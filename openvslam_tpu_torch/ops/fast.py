@@ -223,7 +223,7 @@ def fast_cell_pools(level_imgs, thr_hi: float, thr_lo: float, budgets, cell: int
         raise RuntimeError(f"fast_cell_pools: unsupported device {dev}")
     args, out, _keep = kernel_args(level_imgs, thr_hi, thr_lo, budgets, cell, masks)
     kernels.check(kernels.library("fast")(*args), "fast_cell_pools")
-    kernels.LAUNCHES["fast_score_maps"] += 1
+    kernels.count_launch("fast_score_maps")
     return out
 
 

@@ -283,5 +283,5 @@ def projection_scale_match(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level,
                                    b_level, b_valid, max_dist=max_dist, ratio=ratio,
                                    cross_check=cross_check, image_size=image_size)
     kernels.check(kernels.library("match")(*args), "projection_scale_match")
-    kernels.LAUNCHES["projection_match"] += 1
+    kernels.count_launch("projection_match")
     return out

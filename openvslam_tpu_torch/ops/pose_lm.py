@@ -243,5 +243,5 @@ def pose_lm(T_init, X_w, obs_uvr, sigma2, mask, *, fx, fy, cx, cy, fxb,
         raise RuntimeError(f"pose_lm: unsupported device {dev}")
     args, out, _keep = kernel_args(T_init, X_w, obs_uvr, sigma2, mask, **kw)
     kernels.check(kernels.library("pose_lm")(*args), "pose_lm")
-    kernels.LAUNCHES["pose_lm"] += 1
+    kernels.count_launch("pose_lm")
     return out

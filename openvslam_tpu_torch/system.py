@@ -1,22 +1,30 @@
-"""System facade, mono with synchronous mapping (counterpart of
-``openvslam_tpu/system.py``; ref ``system.h/.cc``): owns the front end, the
-map database and the tracking, mapping and global optimization modules,
-and exposes startup, shutdown, ``feed_monocular_frame``, the loop-detector
-switches, reset and the trajectory accessors.
+"""System facade, mono (counterpart of ``openvslam_tpu/system.py``; ref
+``system.h/.cc``): owns the front end, the map database and the tracking,
+mapping and global optimization modules, and exposes startup, shutdown,
+``feed_monocular_frame``, the pipelined ``feed_sequence``, the mapping and
+loop-detector switches, pause/resume, reset and the trajectory accessors.
 
-Tracking runs in the caller; mapping runs synchronously after each keyframe
-insertion, and so does the loop pipeline (BoW registration, detection,
-Sim3 validation, correction, pose graph, global BA).  The common TRACKING
-path is one fused ``TrackStep`` per frame (kernels K1, K2, K3 on the card);
-initialization, relocalization and the rare fallbacks take the classic
-module ladder.
+Tracking runs in the caller.  The common TRACKING path is one fused
+``TrackStep`` per frame (kernels K1, K2, K3 on the card); initialization,
+relocalization and the rare fallbacks take the classic module ladder.
 
-Not ported: async mapping, the pipelined ``feed_sequence``, the loop worker
-and the background global BA, stereo and RGB-D, map IO, publishers and
-autosave.
+Synchronous by default: mapping runs after each keyframe insertion, and so
+does the loop pipeline (BoW registration, detection, Sim3 validation,
+correction, pose graph, global BA).  ``async_mapping=True`` gives the
+reference's three threads: mapping runs on a worker behind
+``_AsyncMapperProxy`` (tracking never waits for local BA), the loop pipeline
+on the global optimization module's loop worker, and the global BA after a
+correction on a thread of its own; each runs on a CUDA stream of its own,
+and they share the map under one lock (``map_lock``).  The feed paces itself
+to the mapper (``_pace_mapper``) so its queue stays short.
+
+Not ported: stereo and RGB-D, map IO, publishers and autosave.
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import threading
 import time
 from typing import List, Optional
 
@@ -33,6 +41,7 @@ from .module.global_optimization_module import GlobalOptimizationModule
 from .module.mapping_module import MappingModule
 from .module.tracking_module import TrackerState, TrackingModule
 from .utils.log import get_logger
+from .utils.threads import WorkerFaults, on_stream, worker_stream
 
 _log = get_logger("system")
 
@@ -51,9 +60,12 @@ def equalize_histogram(img: np.ndarray) -> np.ndarray:
 
 
 class System:
-    def __init__(self, cfg: Config, vocab_path: Optional[str] = None, device="cuda"):
+    def __init__(self, cfg: Config, vocab_path: Optional[str] = None,
+                 async_mapping: bool = False, device="cuda"):
         """``vocab_path`` None or "default" takes the package's vocabulary for
-        the descriptor pattern; otherwise an npz vocabulary file."""
+        the descriptor pattern; otherwise an npz vocabulary file.
+        ``async_mapping`` runs mapping, the loop pipeline and the global BA
+        on worker threads (see the module docstring)."""
         self.device = resolve_device(device)
         if cfg.camera.setup != SetupType.MONOCULAR:
             raise NotImplementedError("only the monocular System is ported")
@@ -75,7 +87,23 @@ class System:
                                                          fix_scale=False, device=self.device)
         self.mapper = MappingModule(cfg, self.cam, self.map_db,
                                     global_optimizer=self.global_optimizer, device=self.device)
-        self.tracker = TrackingModule(cfg, self.cam, self.map_db, mapper=self.mapper,
+        self.map_lock = threading.RLock()
+        self.global_optimizer.map_lock = self.map_lock
+        self.global_optimizer.async_global_ba = async_mapping
+        self._async = async_mapping
+        self._tracker_mapper = self.mapper
+        if async_mapping:
+            self.mapper.map_lock = self.map_lock
+            self._tracker_mapper = _AsyncMapperProxy(self.mapper, self.map_lock,
+                                                     self.global_optimizer.faults, self.device)
+            # the loop worker pauses the mapper through the proxy for a
+            # correction
+            self.global_optimizer.mapper_proxy = self._tracker_mapper
+        # feed-path backpressure accounting (stats())
+        self._pace_waits = 0
+        self._pace_wait_s = 0.0
+        self._pace_wait_max = 0.0
+        self.tracker = TrackingModule(cfg, self.cam, self.map_db, mapper=self._tracker_mapper,
                                       relocalizer=self.global_optimizer.relocalizer,
                                       device=self.device)
         # static mask from Feature.mask_rectangles ([y0,y1,x0,x1] ratios)
@@ -96,15 +124,54 @@ class System:
         # moves of the keyframe reach the frame): (ref_kf, T_rel) or None
         self.traj_ref: List[Optional[tuple]] = []
         self.track_times: List[float] = []  # per-frame wall time (ref track_times)
+        # per-phase wall times of the last feed_sequence
+        self.pipe_stats = {"prep_s": [], "dispatch_s": [], "finish_s": []}
+        self.mapping_enabled = True
+        if async_mapping:
+            self.global_optimizer.start_loop_worker()
 
     # ------------------------------------------------------------------
     def startup(self):
-        _log.info("system startup (monocular, %dx%d, sync mapping, %s)",
-                  self.cam.cols, self.cam.rows, self.device)
+        _log.info("system startup (monocular, %dx%d, %s mapping, %s)", self.cam.cols,
+                  self.cam.rows, "async" if self._async else "sync", self.device)
 
     def shutdown(self):
+        """Drain the mapping worker (it queues loop checks), then stop the
+        loop worker (it may start a global BA), then join the global BA.
+        Every wait is bounded and raises TimeoutError when it expires."""
+        try:
+            if isinstance(self._tracker_mapper, _AsyncMapperProxy):
+                self._tracker_mapper.drain()
+        finally:
+            try:
+                self.global_optimizer.stop_loop_worker()
+            finally:
+                self.global_optimizer.join_global_ba(timeout=120)
+                self.tracker.close()
         _log.info("system shutdown: %d frames, %d keyframes, %d landmarks",
                   len(self.trajectory), self.map_db.n_kfs, len(self.map_db.valid_lm_ids()))
+
+    def enable_mapping_module(self):
+        _log.info("mapping module enabled")
+        self.mapping_enabled = True
+        self.tracker.mapper = self._tracker_mapper
+
+    def disable_mapping_module(self):
+        """Localization mode: the map is frozen, frames are only tracked
+        (ref §3.5)."""
+        _log.info("mapping module disabled (localization mode)")
+        self.mapping_enabled = False
+        self.tracker.mapper = None
+
+    def pause_other_threads(self):
+        """Pause the mapping worker (ref system::pause_other_threads); nothing
+        to pause in synchronous mode."""
+        if isinstance(self._tracker_mapper, _AsyncMapperProxy):
+            self._tracker_mapper.pause()
+
+    def resume_other_threads(self):
+        if isinstance(self._tracker_mapper, _AsyncMapperProxy):
+            self._tracker_mapper.resume()
 
     def abort_loop_BA(self):
         """Skip the next global BA (ref system::abort_loop_BA)."""
@@ -120,21 +187,32 @@ class System:
         return self.global_optimizer.loop_enabled
 
     def loop_BA_is_running(self) -> bool:
-        """Always False: the global BA runs inline in synchronous mode."""
+        """Whether the background global BA is running (never in
+        synchronous mode, where it runs inline)."""
         return self.global_optimizer.loop_BA_is_running()
 
     def request_reset(self):
         """Drop the map, the BoW database and the loop state; tracking
-        starts over from initialization."""
+        starts over from initialization.  In async mode the mapping worker
+        is paused and its queue dropped first."""
         _log.info("map reset requested")
-        self.map_db = MapDatabase(kpt_capacity=self.frontend.capacity)
-        self.camera_name = self.map_db.register_camera(
-            self.camera_name, camera_to_config(self.cam), make_default=True)
-        self.mapper.reset(self.map_db)
-        self.tracker.reset(self.map_db)
-        self.global_optimizer.reset(self.map_db)
-        self.trajectory.clear()
-        self.traj_ref.clear()
+        proxy = self._tracker_mapper
+        if isinstance(proxy, _AsyncMapperProxy):
+            proxy.pause(wait=True)
+            proxy.clear()
+        try:
+            with self.map_lock:
+                self.map_db = MapDatabase(kpt_capacity=self.frontend.capacity)
+                self.camera_name = self.map_db.register_camera(
+                    self.camera_name, camera_to_config(self.cam), make_default=True)
+                self.mapper.reset(self.map_db)
+                self.tracker.reset(self.map_db)
+                self.global_optimizer.reset(self.map_db)
+                self.trajectory.clear()
+                self.traj_ref.clear()
+        finally:
+            if isinstance(proxy, _AsyncMapperProxy):
+                proxy.resume()
 
     # ------------------------------------------------------------------
     def _use_fused(self) -> bool:
@@ -144,37 +222,168 @@ class System:
         return (tr.state == TrackerState.TRACKING and tr.last_frame is not None
                 and tr.last_frame.pose_cw is not None)
 
+    def feed_kind(self) -> str:
+        """Sequence kind for this camera setup, as ``feed_sequence`` takes it
+        (the port runs monocular cameras only)."""
+        return "monocular"
+
+    def feed_frame(self, *args, **kwargs):
+        """Setup-dispatched per-frame feed (``feed_monocular_frame`` here)."""
+        return self.feed_monocular_frame(*args, **kwargs)
+
+    def _pace_mapper(self):
+        """Backpressure (async mapping): before any lock is taken, block the
+        feed until the mapper's keyframe queue drains to <= 1 once 2 wait.
+        Pacing here, not inside keyframe insertion, matters: insertion runs
+        with the map lock held, and the mapper needs that lock to drain.
+        Each wait is bounded by twice the median per-keyframe mapping time
+        (at least 0.5 s); ``wait_for_backlog`` returns at once while the
+        mapper is paused."""
+        proxy = self._tracker_mapper
+        wait = getattr(proxy, "wait_for_backlog", None)
+        if wait is None or proxy.backlog < 2:
+            return
+        times = list(proxy.kf_proc_times)
+        bound = max(0.5, 2.0 * float(np.median(times))) if times else 5.0
+        t0 = time.perf_counter()
+        wait(max_backlog=1, timeout=bound)
+        dt = time.perf_counter() - t0
+        self._pace_waits += 1
+        self._pace_wait_s += dt
+        self._pace_wait_max = max(self._pace_wait_max, dt)
+
+    def _mask_tensor(self, mask):
+        return (self._static_mask if mask is None
+                else torch.as_tensor(np.asarray(mask, np.float32), device=self.device))
+
     def feed_monocular_frame(self, image: np.ndarray, timestamp: float,
                              mask: Optional[np.ndarray] = None):
         """image: (rows, cols) uint8 grayscale or (rows, cols, 3) color; mask:
         optional (rows, cols), > 0 = usable.  Returns pose_cw (4,4) or None."""
+        self._pace_mapper()
         img = self._to_gray(image)
-        mask_t = (self._static_mask if mask is None
-                  else torch.as_tensor(np.asarray(mask, np.float32), device=self.device))
+        mask_t = self._mask_tensor(mask)
         tr = self.tracker
         t0 = time.perf_counter()
         if self._use_fused():
-            pose, _ = tr.track_fused(img, self.frame_id, timestamp, self._track_step, mask_t)
+            with self.map_lock:
+                pose, _ = tr.track_fused(img, self.frame_id, timestamp, self._track_step, mask_t)
             self._fused_frames += 1
         else:
             kp = self.frontend.extract(torch.from_numpy(img).to(self.device), mask_t)
             frame = Frame.from_keypoints(self.frame_id, timestamp, kp, self.cam)
-            pose = tr.track(frame)
+            with self.map_lock:
+                pose = tr.track(frame)
         self.frame_id += 1
         self.track_times.append(time.perf_counter() - t0)
         self._append_trajectory(timestamp, pose)
         return pose
 
+    # ------------------------------------------------------------------
+    # pipelined sequence feed
+    # ------------------------------------------------------------------
+    def feed_sequence(self, items, kind: str = "monocular", depth: int = 1):
+        """Software-pipelined sequence feed.  ``items`` yields monocular
+        ``(image, ts[, mask])`` tuples; this generator yields ``(timestamp,
+        pose_cw or None)`` in order.
+
+        Up to ``depth`` fused steps stay in flight: frame N+depth is
+        dispatched before frame N is finished, so frame N's host
+        bookkeeping overlaps the device work of the frames behind it.  A
+        dispatched step sees the map as of ``depth`` frames ago (the
+        stale-map contract async mapping already grants) and predicts its
+        pose ``depth + 1`` frames past the last finished one
+        (``TrackingModule._predict_pose``).  A frame that leaves the common
+        TRACKING path drains the pipeline and takes the classic ladder;
+        when tracking breaks mid-flight, the younger in-flight steps are
+        discarded and their frames replayed through the classic ladder.
+
+        ``track_times`` records the yield-to-yield period per frame;
+        ``pipe_stats`` the per-phase wall times."""
+        return self._feed_sequence_timed(items, kind, depth)
+
+    def _feed_sequence_timed(self, items, kind, depth):
+        inner = self._feed_sequence_impl(items, kind, depth)
+        t_last = time.perf_counter()
+        for out in inner:
+            now = time.perf_counter()
+            # the classic path appends its own per-frame time; fused
+            # finishes do not: fill in the yield-to-yield period
+            if len(self.track_times) < len(self.trajectory):
+                self.track_times.append(now - t_last)
+            t_last = now
+            yield out
+
+    def _feed_sequence_impl(self, items, kind: str, depth: int):
+        kind = kind.lower()
+        if kind not in ("monocular", "stereo", "rgbd"):
+            raise ValueError(f"unknown sequence kind: {kind}")
+        if kind != "monocular":
+            raise NotImplementedError("only the monocular feed is ported")
+        depth = max(1, min(int(depth), 31))   # the tracker's pose-history bound
+        tr = self.tracker
+        inflight = collections.deque()        # dispatched, not finished
+        self.pipe_stats = {"prep_s": [], "dispatch_s": [], "finish_s": []}
+
+        def _finish(flight):
+            t0 = time.perf_counter()
+            with self.map_lock:
+                pose, _ = tr.track_fused_finish(flight["h"])
+            self._fused_frames += 1
+            self.pipe_stats["finish_s"].append(time.perf_counter() - t0)
+            self._append_trajectory(flight["ts"], pose)
+            return pose
+
+        def _discard_and_replay():
+            """Tracking left the common path mid-flight: every younger step
+            used a broken prediction; replay those frames through the
+            classic ladder under the frame ids they consumed."""
+            replay = list(inflight)
+            inflight.clear()
+            for fl in replay:
+                self.frame_id = fl["fid"]
+                yield fl["ts"], self.feed_monocular_frame(*fl["item"])
+
+        def _drain(n_keep):
+            while len(inflight) > n_keep:
+                fl = inflight.popleft()
+                yield fl["ts"], _finish(fl)
+                if not self._use_fused():
+                    yield from _discard_and_replay()
+                    return
+
+        for item in items:
+            self._pace_mapper()      # backpressure before any lock is taken
+            tp = time.perf_counter()
+            img, ts = self._to_gray(item[0]), item[1]
+            mask_t = self._mask_tensor(item[2] if len(item) > 2 else None)
+            self.pipe_stats["prep_s"].append(time.perf_counter() - tp)
+            if self._use_fused():
+                td = time.perf_counter()
+                with self.map_lock:
+                    h = tr.track_fused_dispatch(img, self.frame_id, ts, self._track_step, mask_t)
+                self.pipe_stats["dispatch_s"].append(time.perf_counter() - td)
+                inflight.append({"h": h, "ts": ts, "fid": self.frame_id, "item": item})
+                self.frame_id += 1
+                yield from _drain(depth)
+            else:
+                # leave the common path: drain the pipeline, then feed this
+                # frame through the classic ladder
+                yield from _drain(0)
+                yield ts, self.feed_monocular_frame(*item)
+        yield from _drain(0)
+
     def _append_trajectory(self, ts: float, pose):
         """Record the frame pose plus its reference-KF-relative anchor."""
         self.trajectory.append((ts, None if pose is None else pose.copy()))
-        db = self.map_db
-        ref = self.tracker.ref_kf
-        if pose is not None and 0 <= ref < db.n_kfs and db.kf_valid[ref]:
-            rel = (pose @ np.linalg.inv(db.kf_pose_cw[ref])).astype(np.float32)
-            self.traj_ref.append((int(ref), rel))
-        else:
-            self.traj_ref.append(None)
+        with self.map_lock:
+            db = self.map_db
+            ref = self.tracker.ref_kf
+            if pose is not None and 0 <= ref < db.n_kfs and db.kf_valid[ref]:
+                rel = (pose @ np.linalg.inv(db.kf_pose_cw[ref])).astype(np.float32)
+                self.traj_ref.append((int(ref), rel))
+            else:
+                self.traj_ref.append(None)
 
     def _to_gray(self, image: np.ndarray) -> np.ndarray:
         if image.ndim == 3:
@@ -192,6 +401,10 @@ class System:
         (ref trajectory_io::save_frame_trajectory).  Culled reference
         keyframes compose through their cull-time spanning-tree parent chain
         (MapDatabase.culled_rel)."""
+        with self.map_lock:
+            return self._composed_poses_locked()
+
+    def _composed_poses_locked(self):
         db = self.map_db
         ts = np.array([t for t, _ in self.trajectory])
         mask = np.array([p is not None for _, p in self.trajectory])
@@ -226,10 +439,17 @@ class System:
 
     def stats(self) -> dict:
         """Observability counters (tracked landmarks, KF count, frame times,
-        mapping work, capacity overflows)."""
+        mapping work, the async pipeline's waits and discards, worker
+        exceptions, capacity overflows).  Taken under the map lock: the
+        workers may be growing the map arrays."""
+        with self.map_lock:
+            return self._stats_locked()
+
+    def _stats_locked(self) -> dict:
         tt = np.array(self.track_times) if self.track_times else np.zeros(1)
         m = self.mapper
         go = self.global_optimizer
+        proxy = self._tracker_mapper
         return {
             "state": self.tracker.state.name,
             "frames_fed": self.frame_id,
@@ -241,6 +461,7 @@ class System:
             "fps": float(1.0 / max(np.median(tt), 1e-9)),
             "fused_frames": self._fused_frames,
             "local_ba_runs": m.ba_runs,
+            "local_ba_skipped": m.ba_skipped,
             "ba_iters_per_s": m.ba_iters_total / m.ba_wall_s if m.ba_wall_s > 0 else 0.0,
             "fetch_wait_s": self.tracker.fetch_wait_s,
             "loops_closed": go.num_loops_closed,
@@ -248,7 +469,177 @@ class System:
             "loop_cands_seen": go.loop_cands_seen,
             "loop_validations": go.loop_validations,
             "reloc_attempts": go.relocalizer.attempts,
+            # unlocked mapping results discarded because a whole-map geometry
+            # rewrite landed meanwhile
+            "stale_discards": m.stale_discards,
+            "pred_hist_misses": self.tracker.pred_hist_misses,
+            # feed-path backpressure
+            "pace_waits": self._pace_waits,
+            "pace_wait_s": self._pace_wait_s,
+            "pace_wait_max_s": self._pace_wait_max,
+            "pace_timeouts": getattr(proxy, "timeouts_hit", 0),
+            # the loop worker (0 in synchronous mode)
+            "loop_backlog": go.loop_backlog,
+            "loop_stale_discards": go.loop_stale_discards,
+            # exceptions raised on the worker threads, and the first one
+            "worker_exceptions": go.faults.count,
+            "worker_first_exception": go.faults.first,
             # entries dropped at a fixed-capacity boundary (local map cap, BA
             # windows): nonzero values mean the caps need raising
             "overflow": {**self.tracker.overflow, **m.overflow},
         }
+
+
+class _AsyncMapperProxy:
+    """Mapping off the tracking thread (ref: mapping runs on its own thread
+    consuming a keyframe queue; tracking never waits for BA, and local BA
+    is skipped when newer keyframes wait).  The tracker stores a keyframe
+    on its own thread (``insert_keyframe``) and one worker processes the
+    queue in order, on a CUDA stream of its own.  Exceptions the worker
+    raises are recorded in ``faults`` and the worker goes on with the next
+    keyframe."""
+
+    def __init__(self, mapper, map_lock, faults: Optional[WorkerFaults] = None, device="cpu"):
+        self.mapper = mapper
+        self.map_lock = map_lock
+        self.faults = faults if faults is not None else WorkerFaults()
+        self.device = torch.device(device)
+        self.pool = concurrent.futures.ThreadPoolExecutor(max_workers=1,
+                                                          thread_name_prefix="mapping")
+        self.queue = collections.deque()
+        self._qlock = threading.Lock()
+        self._future = None
+        self._stream = None              # the worker's, made on its first drain
+        self._resume_evt = threading.Event()
+        self._resume_evt.set()
+        # set after every processed keyframe: wait_for_backlog waits on it
+        self._progress_evt = threading.Event()
+        # per-keyframe processing times (System._pace_mapper bounds its wait
+        # by twice their median)
+        self.kf_proc_times = collections.deque(maxlen=32)
+        self.timeouts_hit = 0
+
+    def pause(self, wait: bool = False, timeout: float = 300.0):
+        """Request a pause; with ``wait`` block until the keyframe in flight
+        (if any) is done (the loop worker's handshake before a correction).
+        Call it without the map lock held: the keyframe in flight needs the
+        lock to finish.  Raises TimeoutError after ``timeout`` seconds."""
+        self._resume_evt.clear()
+        if wait:
+            with self._qlock:
+                fut = self._future
+            if fut is not None:
+                fut.result(timeout=timeout)
+
+    def resume(self):
+        self._resume_evt.set()
+        with self._qlock:
+            if self.queue and (self._future is None or self._future.done()):
+                try:
+                    self._future = self.pool.submit(self._drain)
+                except RuntimeError:
+                    pass        # the pool was shut down (System.shutdown)
+
+    def clear(self):
+        """Drop the queued keyframes (System.request_reset)."""
+        with self._qlock:
+            self.queue.clear()
+
+    @property
+    def paused(self) -> bool:
+        return not self._resume_evt.is_set()
+
+    def after_initialization(self, kf1, kf2):
+        return self.mapper.after_initialization(kf1, kf2)
+
+    @property
+    def idle(self) -> bool:
+        with self._qlock:
+            return not self.queue and (self._future is None or self._future.done())
+
+    @property
+    def backlog(self) -> int:
+        """Keyframes queued behind the one in flight (the tracker's
+        keyframe-insertion gate reads this)."""
+        with self._qlock:
+            return len(self.queue)
+
+    def wait_for_backlog(self, max_backlog: int = 1, timeout: float = 30.0) -> bool:
+        """Block the caller until the queue drains to ``max_backlog``.  Returns
+        True if it drained, False on an early out: at once while the mapper
+        is paused (the queue cannot shrink), or when ``timeout`` expires
+        (counted in ``timeouts_hit`` and logged)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            if self.backlog <= max_backlog:
+                return True
+            if not self._resume_evt.is_set():
+                return False
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                self.timeouts_hit += 1
+                _log.warning("wait_for_backlog timed out after %.1fs (backlog %d > %d); "
+                             "feeding anyway", timeout, self.backlog, max_backlog)
+                return False
+            self._progress_evt.clear()
+            self._progress_evt.wait(min(remaining, 0.25))
+
+    def insert_keyframe(self, frame) -> int:
+        """Store the keyframe now (the caller holds the map lock) and queue
+        its processing."""
+        t0 = time.perf_counter()
+        kf = self.mapper.store_keyframe(frame)
+        self.mapper._phase("store", t0)
+        with self._qlock:
+            self.queue.append(kf)
+            if self._future is None or self._future.done():
+                self._future = self.pool.submit(self._drain)
+        return kf
+
+    def _drain(self):
+        if self._stream is None:
+            self._stream = worker_stream(self.device)
+        with on_stream(self._stream):
+            while True:
+                if not self._resume_evt.is_set():
+                    return          # paused: resume() submits the drain again
+                with self._qlock:
+                    if not self.queue:
+                        return
+                    kf = self.queue.popleft()
+                    backlog = len(self.queue) > 0
+                t0 = time.perf_counter()
+                try:
+                    # local BA is skipped while newer keyframes wait
+                    self.mapper.process_keyframe(kf, run_ba=not backlog)
+                except Exception:
+                    self.faults.record(f"mapping worker: keyframe {kf}")
+                self.kf_proc_times.append(time.perf_counter() - t0)
+                self._progress_evt.set()
+
+    def drain(self, timeout: float = 300.0):
+        """Process everything still queued, then stop the worker.  The loop
+        worker may hold the mapper paused for a correction meanwhile: wait
+        for its resume rather than drop the queue.  Raises TimeoutError if
+        the queue is not empty after ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        while True:
+            remaining = deadline - time.monotonic()
+            with self._qlock:
+                fut = self._future
+            try:
+                if remaining <= 0:
+                    raise concurrent.futures.TimeoutError
+                if fut is not None:
+                    fut.result(timeout=remaining)
+                with self._qlock:
+                    pending = bool(self.queue)
+                if not pending:
+                    break
+                if self._resume_evt.wait(timeout=min(5.0, max(remaining, 0.0))):
+                    self.resume()
+            except concurrent.futures.TimeoutError:
+                self.pool.shutdown(wait=False)
+                raise TimeoutError(f"mapping worker still busy after {timeout} s "
+                                   f"({self.backlog} keyframes queued)") from None
+        self.pool.shutdown(wait=True)

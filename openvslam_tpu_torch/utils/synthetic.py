@@ -81,6 +81,49 @@ def noise_texture(rng: np.random.Generator, th: int, tw: int,
     return (20 + tex * 225).astype(np.float32)
 
 
+class PlaneSceneRenderer:
+    """A multi-octave noise texture on the world plane z = plane_z, rendered
+    by per-pixel ray casting (numpy): a continuous texture whose keypoint
+    neighbourhoods move rigidly with the surface; a planar scene, so the
+    two-view bootstrap takes its homography path."""
+
+    def __init__(self, rng: np.random.Generator, x_range=(-4.0, 18.0), y_range=(-6.0, 6.0),
+                 plane_z=7.0, res=60, rows=320, cols=416,
+                 octaves=((4, 0.2), (16, 0.4), (64, 1.0), (128, 0.6)), dots=True):
+        self.x0, self.x1 = x_range
+        self.y0, self.y1 = y_range
+        self.plane_z = plane_z
+        self.res = res
+        self.rows = rows
+        self.cols = cols
+        tw = int((self.x1 - self.x0) * res)
+        th = int((self.y1 - self.y0) * res)
+        self.texture = noise_texture(rng, th, tw, octaves, dots)
+
+    def render(self, cam, T_cw: np.ndarray) -> np.ndarray:
+        uu, vv = np.meshgrid(np.arange(self.cols), np.arange(self.rows))
+        pix = np.stack([uu.reshape(-1), vv.reshape(-1)], -1).astype(np.float32)
+        brg = cam.keypoints_to_bearings(torch.from_numpy(pix)).numpy()
+        R = T_cw[:3, :3]
+        c = -R.T @ T_cw[:3, 3]                # camera centre, world
+        d = brg @ R                           # ray directions, world
+        dz = d[:, 2]
+        lam = (self.plane_z - c[2]) / np.where(np.abs(dz) < 1e-9, 1e-9, dz)
+        X = c[None, :] + lam[:, None] * d
+        tx = (X[:, 0] - self.x0) * self.res
+        ty = (X[:, 1] - self.y0) * self.res
+        tex = self.texture
+        th, tw = tex.shape
+        x0 = np.clip(np.floor(tx).astype(int), 0, tw - 2)
+        y0 = np.clip(np.floor(ty).astype(int), 0, th - 2)
+        fx = np.clip(tx - x0, 0, 1)
+        fy = np.clip(ty - y0, 0, 1)
+        val = (tex[y0, x0] * (1 - fx) * (1 - fy) + tex[y0, x0 + 1] * fx * (1 - fy)
+               + tex[y0 + 1, x0] * (1 - fx) * fy + tex[y0 + 1, x0 + 1] * fx * fy)
+        inside = (lam > 0) & (tx >= 0) & (tx < tw - 1) & (ty >= 0) & (ty < th - 1)
+        return np.where(inside, val, 0.0).reshape(self.rows, self.cols).astype(np.uint8)
+
+
 class RoomSceneRenderer:
     """Textured walls of a regular n-gon room with the camera inside: full
     laps revisit their start (the loop-closure topology).  numpy ray casting
