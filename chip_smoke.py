@@ -47,14 +47,30 @@ Phases:
      through the async System and ``feed_sequence(depth=1)``: the loop must
      be closed by the loop worker, with phase 6's gates (the System settles
      before the blank frames: the mapping queue drained, the loop worker
-     idle, the global BA joined), and K2 must launch from the loop worker.
+     idle, the global BA joined), and K2 must launch from the loop worker;
+  7. the stereo System at KITTI 00's full width (configs/kitti_stereo_00.yaml:
+     1241x376, 2000 keypoints, 8 levels, a 0.537 m baseline; loop detection
+     on) over 120 rendered pairs along tests/test_stereo_rgbd_e2e.py's wall:
+     synchronously frame by frame (depth bootstrap, dense stereo match,
+     depth seeding, stereo local BA), then with async mapping through
+     ``feed_sequence(kind="stereo", depth=3)``; the reference test's gates
+     (tracked > 0.90, ATE(se3) < 0.08 m), the depth bootstrap and a stereo
+     local BA replayed on the CPU, K1, K2 and K3 held against their plain
+     versions at the shapes the run gave them;
+  7b. the RGB-D System at TUM fr1's width (configs/tum_rgbd_rgbd_fr1.yaml,
+     with its distortion) through ``feed_sequence(kind="rgbd", depth=3)``,
+     depth maps as TUM stores them (uint16, metres x 5000); the gates of
+     test_rgbd_pipelined and the kernels held at its shapes;
+  7c. the stereo loop at tests/test_stereo_loop.py's own point (320x240):
+     a loop closed with the Sim3 scale locked at 1 and the keyframe
+     ATE(se3) within 1.25 times the JAX System's reading there.
 Kernel launch counts are reset just before each main-path run and read just
 after it.  Any mismatch, any kernel that a main-path run did not launch, or
 any exception exits non-zero.  The last line is a JSON object with the
 device; the line before it is the card's name and power limit; the line
 before that lists every kernel with its numbers and its launches in the
-six main-path runs (FrameStep, TrackStep, System, loop-and-relocalization
-and their async runs).
+main-path runs (FrameStep, TrackStep, System, loop-and-relocalization,
+their async runs, stereo, stereo async, RGB-D and the stereo loop).
 """
 from __future__ import annotations
 
@@ -90,6 +106,17 @@ LOOP_ATE_MARGIN = 1.25
 # phase 6's 200 frames; the port loses this lap at depth 3 (ROADMAP Queue 3).
 ASYNC_LOOP_FRAMES = 400
 ASYNC_LOOP_DEPTH = 1
+# Phase 7c's working point: tests/test_stereo_loop.py's own (the octagon
+# room of seed 11 and its 200-frame lap at 320x240, a 0.25 m baseline, 500
+# keypoints, 3 levels, loop detection on with minimum continuity 2,
+# synchronous mapping).  tools/depth_points_jax.py drives the JAX
+# System through this same definition; its keyframe ATE(se3) there is
+# STEREO_LOOP_REF_KF_ATE_M, and the port is held to LOOP_ATE_MARGIN times it.
+STEREO_LOOP_POINT = dict(rows=240, cols=320, keypoints=500, levels=3, frames=200,
+                         baseline=0.25, seed=11)
+STEREO_LOOP_REF_KF_ATE_M = 0.3622
+# Phases 7 and 7b: frames along tests/test_stereo_rgbd_e2e.py's wall
+WALL_FRAMES = 120
 
 
 def log(msg: str) -> None:
@@ -277,15 +304,158 @@ def loop_scene(synthetic, cam, frames: int = LOOP_POINT["frames"]):
     return scene, synthetic.lap_trajectory(frames, radius=6.0, laps=200 / 180)
 
 
-def keyframe_ate(db, gt, evaluate) -> float:
-    """ATE(sim3) of the map's keyframe centres against the ground truth of
-    their source frames."""
+def stereo_loop_config_dict() -> dict:
+    """Phase 7c's configuration (``Config.from_dict`` of either package)."""
+    p = STEREO_LOOP_POINT
+    rows, cols = p["rows"], p["cols"]
+    f = 260.0 * cols / 320
+    return {"Camera": {"name": "lap-stereo", "setup": "stereo", "model": "perspective",
+                       "fx": f, "fy": f, "cx": cols / 2, "cy": rows / 2,
+                       "cols": cols, "rows": rows, "fps": 20,
+                       "focal_x_baseline": f * p["baseline"], "depth_threshold": 40.0},
+            "Feature": {"max_num_keypts": p["keypoints"], "num_levels": p["levels"],
+                        "scale_factor": 1.2},
+            "LoopDetector": {"enabled": True, "min_continuity": 2}}
+
+
+def stereo_loop_scene(synthetic, cam):
+    """Phase 7c's (scene, ground-truth left poses, left-to-right shift) from
+    a ``utils.synthetic`` module: the port's, or the JAX package's copy."""
+    p = STEREO_LOOP_POINT
+    scene = synthetic.RoomSceneRenderer(np.random.default_rng(p["seed"]), half=10.0,
+                                        rows=cam.rows, cols=cam.cols, n_walls=8)
+    shift = np.eye(4)
+    shift[0, 3] = -p["baseline"]
+    return scene, synthetic.lap_trajectory(p["frames"], radius=6.0, laps=200 / 180), shift
+
+
+def keyframe_ate(db, gt, evaluate, align: str = "sim3") -> float:
+    """ATE (``align`` sim3 or se3) of the map's keyframe centres against the
+    ground truth of their source frames."""
     ids = db.valid_kf_ids()
     if len(ids) < 3:
         return float("inf")
     ek = np.stack([-db.kf_pose_cw[k][:3, :3].T @ db.kf_pose_cw[k][:3, 3] for k in ids])
     gk = np.stack([-gt[j][:3, :3].T @ gt[j][:3, 3] for j in db.kf_src_frame[ids]])
-    return float(evaluate.ate_rmse(ek, gk, align="sim3"))
+    return float(evaluate.ate_rmse(ek, gk, align=align))
+
+
+def check_k1(levels, budgets, masks=(None,), thr=(20.0, 7.0)):
+    """K1 on one frame's pyramid ``levels`` against its plain composition,
+    once per entry of ``masks`` (None or per-level masks): the candidate
+    pools and the keypoints selected from them, bit-exact.  Times the
+    wrapper, the C entry alone and the plain version on the first entry,
+    and counts the least work of the fused stage on this frame: per pixel
+    100 operations for the lower-threshold pass masks (16 differences, 32
+    compares, 32 bit inserts, two 10-operation 9-run tests), 8 NMS
+    compares and 2 for the preference; per pixel with a lower-threshold
+    arc 160 (16 sliding arc sums, per threshold and polarity 16 compares
+    and 16 maxima); per cell k_cell rounds of a 1024-wide maximum.  Bytes:
+    every level read once, the pools written once."""
+    import torch
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.ops import fast
+
+    shapes = [tuple(im.shape) for im in levels]
+    exact, err, corners = True, 0.0, 0
+    for ms in masks:
+        vk, ik = fast.fast_cell_pools(levels, *thr, budgets, masks=ms)
+        vp, ip = fast.fast_cell_pools_plain(levels, *thr, budgets, masks=ms)
+        dk = fast.detect_levels(levels, *thr, budgets, masks=ms)
+        dp = fast.select_from_pools(vp, ip, shapes, budgets)
+        exact &= (torch.equal(vk, vp) and torch.equal(ik, ip)
+                  and all(torch.equal(a, b) for x, y in zip(dk, dp) for a, b in zip(x, y)))
+        err = max(err, float(torch.where(vk == vp, 0.0, (vk - vp).abs()).max()),
+                  float((ik - ip).abs().max()))
+        corners = max(corners, int((vk > 0).sum()))
+    m0 = masks[0]
+    ms_w, lo, hi = cuda_ms(lambda: fast.fast_cell_pools(levels, *thr, budgets, masks=m0), 200)
+    args, _, keep = fast.kernel_args(levels, *thr, budgets, masks=m0)
+    lib = kernels.library("fast")
+    ms_k = cuda_ms(lambda: lib(*args), 200)[0]
+    pms = cuda_ms(lambda: fast.fast_cell_pools_plain(levels, *thr, budgets, masks=m0), 10,
+                  repeats=1)[0]
+    px = sum(im.numel() for im in levels)
+    arc_px = sum(int((fast.fast_score_maps(im, [thr[1]])[0] > 0).sum()) for im in levels)
+    geo = fast.pool_geometry(tuple(shapes), tuple(budgets), 32)
+    topk_ops = sum(n * k * 1024 for n, k in zip(geo.cells, geo.k_cell))
+    b, by = bound(px * 110 + arc_px * 160 + topk_ops, H100_F32_OPS_PER_S,
+                  px * 4 + len(levels) * geo.vmax * (4 + 8))
+    return dict(shape=f"{len(levels)} levels {shapes[0][1]}x{shapes[0][0]}", exact=exact,
+                max_abs_err=err, ms=ms_w, ms_lo=lo, ms_hi=hi, ms_kernel_only=ms_k, plain_ms=pms,
+                bound_ms=b, bound_by=by, pixels=px, arc_pixels=arc_px, pool_width=geo.vmax,
+                corners=corners, masks=len(masks))
+
+
+def check_k2(a2, kw2, image):
+    """K2 on the operands ``a2`` of one guided search against its plain
+    version: idx and dist exact under the 4 ratio / cross-check settings x
+    2 max_dist, and no match when no row is visible; then at ``kw2`` the
+    wrapper, the C entry alone and the plain version timed.  Least work:
+    the distances of the pairs the gate passes (8 XOR, 8 popcount, 8 adds
+    each); bytes: every input once, idx and dist once."""
+    import torch
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.ops import match as M
+
+    exact = True
+    for ratio, cross in ((0.9, True), (None, True), (0.9, False), (None, False)):
+        for md in (M.HAMMING_DIST_THR_HIGH, M.HAMMING_DIST_THR_LOW):
+            ik, dk = M.projection_scale_match(*a2, max_dist=md, ratio=ratio, cross_check=cross,
+                                              image_size=image)
+            ip, dp = M.projection_scale_match_plain(*a2, max_dist=md, ratio=ratio,
+                                                    cross_check=cross)
+            exact &= torch.equal(ik, ip) and torch.equal(dk, dp)
+    nomatch = M.projection_scale_match(*a2[:3], torch.zeros_like(a2[3]), *a2[4:],
+                                       image_size=image)[0]
+    exact &= bool((nomatch == -1).all())
+    ik, dk = M.projection_scale_match(*a2, **kw2, image_size=image)
+    ip, dp = M.projection_scale_match_plain(*a2, **kw2)
+    err = float(max((ik - ip).abs().max(), (dk - dp).abs().max()))
+    ms_w, lo, hi = cuda_ms(lambda: M.projection_scale_match(*a2, **kw2, image_size=image), 200)
+    args, _, keep = M.kernel_args(*a2, **kw2, image_size=image)
+    lib = kernels.library("match")
+    ms_k = cuda_ms(lambda: lib(*args), 200)[0]
+    pms = cuda_ms(lambda: M.projection_scale_match_plain(*a2, **kw2), 10, repeats=1)[0]
+    gate = M.projection_gate(a2[2], a2[3], a2[6], a2[4]) & a2[8][None, :]
+    gate &= (torch.abs(a2[7][None, :] - a2[5][:, None]) <= 1) | (a2[5] < 0)[:, None]
+    pairs = int(gate.sum())
+    nbytes = sum(t.numel() * t.element_size() for t in a2) + 2 * 4 * a2[0].shape[0]
+    b, by = bound(pairs * 24, H100_F32_OPS_PER_S, nbytes)
+    return dict(shape=f"L{a2[0].shape[0]}xK{a2[1].shape[0]} on {image[0]}x{image[1]}",
+                exact=exact, max_abs_err=err, ms=ms_w, ms_lo=lo, ms_hi=hi, ms_kernel_only=ms_k,
+                plain_ms=pms, bound_ms=b, bound_by=by, visible=int(a2[3].sum()),
+                gate_pairs=pairs, matched=int((ik >= 0).sum()))
+
+
+def check_k3(args, kw):
+    """K3 on one pose problem ``args`` (T_init, X_w, obs (N,2|3), sigma2,
+    mask) against its plain version: the largest pose difference and the
+    share of equal inlier flags, with the wrapper, the C entry alone and
+    the plain version timed.  Least work: per pass over the masked rows one
+    evaluation (~110 flops) and the 27 normal-equation entries (~8 flops
+    each), 4 rounds x (10 + 1) passes; one evaluation of every row for
+    chi2.  Bytes: every input once, chi2, inliers and the pose once."""
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.ops import pose_lm
+
+    Tk, ink, nk, _ = pose_lm.pose_lm(*args, **kw)
+    Tp, inp, npl, _ = pose_lm.pose_lm_plain(*args, **kw)
+    dT = float((Tk - Tp).abs().max())
+    agree = float((ink == inp).float().mean())
+    ms_w, lo, hi = cuda_ms(lambda: pose_lm.pose_lm(*args, **kw), 50)
+    kargs, _, keep = pose_lm.kernel_args(*args, **kw)
+    lib = kernels.library("pose_lm")
+    ms_k = cuda_ms(lambda: lib(*kargs), 50)[0]
+    pms = cuda_ms(lambda: pose_lm.pose_lm_plain(*args, **kw), 3, warmup=1, repeats=1)[0]
+    N, m = args[1].shape[0], int(args[4].sum())
+    ops = 44 * m * (110 + 27 * 8) + N * 110
+    nbytes = sum(t.numel() * t.element_size() for t in args) + N * 5 + 64 + 8
+    b, by = bound(ops, H100_F32_OPS_PER_S, nbytes)
+    return dict(shape=f"N{N} {args[2].shape[1]}-column fxb {kw['fxb']}", masked=m,
+                ok=dT <= 1e-3 and agree >= 0.99, max_abs_err=dT, inlier_agreement=agree,
+                inliers=[int(nk), int(npl)], ms=ms_w, ms_lo=lo, ms_hi=hi, ms_kernel_only=ms_k,
+                plain_ms=pms, bound_ms=b, bound_by=by)
 
 
 def build_local_map(fs_or_fe, cam, scene, T0_cw, img0, L, device):
@@ -1029,6 +1199,456 @@ def async_loop_phase(dev, frames, depth: int = ASYNC_LOOP_DEPTH):
     return out, counts
 
 
+def kitti_config_dict() -> dict:
+    """Phase 7's configuration: configs/kitti_stereo_00.yaml's Camera and
+    Feature blocks (1241x376, fx = fy = 718.856, focal_x_baseline 386.1448,
+    2000 keypoints, 8 levels), loop detection on."""
+    return {"Camera": {"name": "KITTI stereo 00-02", "setup": "stereo", "model": "perspective",
+                       "fx": 718.856, "fy": 718.856, "cx": 607.1928, "cy": 185.2157,
+                       "k1": 0.0, "k2": 0.0, "p1": 0.0, "p2": 0.0, "fps": 10.0,
+                       "cols": 1241, "rows": 376, "focal_x_baseline": 386.1448,
+                       "depth_threshold": 40.0},
+            "Feature": {"max_num_keypts": 2000, "scale_factor": 1.2, "num_levels": 8},
+            "LoopDetector": {"enabled": True}}
+
+
+def tum_config_dict() -> dict:
+    """Phase 7b's configuration: configs/tum_rgbd_rgbd_fr1.yaml's Camera and
+    Feature blocks (640x480 with its radial-tangential distortion, 1000
+    keypoints, 8 levels, focal_x_baseline 40, depthmap_factor 5000)."""
+    return {"Camera": {"name": "TUM RGBD freiburg1", "setup": "rgbd", "model": "perspective",
+                       "fx": 517.306408, "fy": 516.469215, "cx": 318.643040,
+                       "cy": 255.313989, "k1": 0.262383, "k2": -0.953104, "p1": -0.005358,
+                       "p2": 0.002628, "k3": 1.163314, "fps": 30.0, "cols": 640, "rows": 480,
+                       "focal_x_baseline": 40.0, "depth_threshold": 40.0,
+                       "depthmap_factor": 5000.0},
+            "Feature": {"max_num_keypts": 1000, "scale_factor": 1.2, "num_levels": 8}}
+
+
+def wall_scene(synthetic, cam, step_m: float, n: int = WALL_FRAMES):
+    """tests/test_stereo_rgbd_e2e.py's textured wall (seed 7, the plane z = 7
+    m, stretched to cover the path) and its sideways path, here ``n``
+    frames ``step_m`` apart, the camera looking at the wall.  Returns
+    (scene, ground-truth poses)."""
+    xs = np.arange(n) * step_m
+    scene = synthetic.PlaneSceneRenderer(np.random.default_rng(7), x_range=(-8.0, xs[-1] + 8.0),
+                                         y_range=(-5.0, 5.0), plane_z=7.0, rows=cam.rows,
+                                         cols=cam.cols)
+    return scene, np.stack([synthetic.lookat_pose_cw((x, 0, 0), (x, 0, 7)) for x in xs])
+
+
+def stereo_pairs(cam):
+    """Phase 7's rendered pairs at KITTI 00's size: (left and right images,
+    ground-truth left poses), 0.1 m a frame along the wall."""
+    from openvslam_tpu_torch.utils import synthetic
+
+    scene, gt = wall_scene(synthetic, cam, 0.1)
+    shift = np.eye(4)
+    shift[0, 3] = -cam.focal_x_baseline / cam.fx
+    t = time.perf_counter()
+    pairs = [(scene.render(cam, T), scene.render(cam, shift @ T)) for T in gt]
+    log(f"Stereo: {len(pairs)} pairs rendered in {time.perf_counter() - t:.1f}s "
+        f"({cam.cols}x{cam.rows}, baseline {-shift[0, 3]:.3f} m)")
+    return pairs, gt
+
+
+def rgbd_frames(cam, depthmap_factor: float = 5000.0):
+    """Phase 7b's frames at TUM fr1's camera ``cam``: (items ``(image,
+    depth map, timestamp)``, ground-truth poses) along the wall at 0.05 m
+    a frame.  The path is fronto-parallel, so every pixel's z-depth is the
+    wall's distance; the maps are stored as TUM stores them (uint16,
+    metres x ``depthmap_factor``)."""
+    from openvslam_tpu_torch.utils import synthetic
+
+    scene, gt = wall_scene(synthetic, cam, 0.05)
+    items = [(scene.render(cam, T),
+              np.full((cam.rows, cam.cols), round((7.0 - (-T[:3, :3].T @ T[:3, 3])[2])
+                                                  * depthmap_factor), np.uint16),
+              i / cam.fps) for i, T in enumerate(gt)]
+    return items, gt
+
+
+def se3_ate(poses, gt, evaluate) -> float:
+    """ATE(se3) of the tracked frames' centres (inf below 3 tracked): a
+    metric map has no scale to align."""
+    idx = [i for i, p in enumerate(poses) if p is not None]
+    if len(idx) < 3:
+        return float("inf")
+    ce = np.stack([-poses[i][:3, :3].T @ poses[i][:3, 3] for i in idx])
+    cg = np.stack([-gt[i][:3, :3].T @ gt[i][:3, 3] for i in idx])
+    return float(evaluate.ate_rmse(ce, cg, align="se3"))
+
+
+class KernelCapture:
+    """While a main-path run drives them, keep the operands of the last K1
+    launch, of the last K2 launch over the local-map table and of the last
+    K3 launch over (u, v, u_right) observations, by wrapping the functions
+    the package calls; it launches nothing itself.  ``check(dev)`` then
+    holds each captured launch against its plain version (``check_k1``,
+    ``check_k2``, ``check_k3``)."""
+
+    def __init__(self, lm_capacity: int):
+        from openvslam_tpu_torch.ops import fast, match as M
+        from openvslam_tpu_torch.optimize import pose_optimizer as PO
+
+        self.lm_capacity = lm_capacity
+        self.k1 = self.k2 = self.k3 = None
+        self._wrapped = [(fast, "fast_cell_pools"), (M, "projection_scale_match"),
+                         (PO, "pose_lm")]
+        self._orig = [getattr(m, n) for m, n in self._wrapped]
+        f1, f2, f3 = self._orig
+
+        def k1(levels, thr_hi, thr_lo, budgets, cell=32, masks=None):
+            self.k1 = (list(levels), (thr_hi, thr_lo), list(budgets), masks)
+            return f1(levels, thr_hi, thr_lo, budgets, cell, masks)
+
+        def k2(*a, **kw):
+            if a[0].shape[0] == self.lm_capacity:
+                self.k2 = (a, kw)
+            return f2(*a, **kw)
+
+        def k3(*a, **kw):
+            if a[2].shape[1] == 3:
+                self.k3 = (a, kw)
+            return f3(*a, **kw)
+
+        for (m, n), w in zip(self._wrapped, (k1, k2, k3)):
+            setattr(m, n, w)
+
+    def restore(self):
+        for (m, n), f in zip(self._wrapped, self._orig):
+            setattr(m, n, f)
+
+    def check(self, tag: str) -> dict:
+        """{kernel key: its row at the captured shape}; fails on a kernel
+        that was not captured or disagrees with its plain version."""
+        if self.k1 is None or self.k2 is None or self.k3 is None:
+            fail(f"{tag}: a kernel of the path was not captured")
+        levels, thr, budgets, masks = self.k1
+        r1 = check_k1(levels, budgets, masks=(masks,), thr=thr)
+        a2, kw2 = self.k2
+        kw2 = dict(kw2)
+        image = kw2.pop("image_size")
+        r2 = check_k2(a2, kw2, image)
+        a3, kw3 = self.k3
+        r3 = check_k3(a3, kw3)
+        rows = {"fast_score_maps": dict(r1, shape=f"{tag} K1 " + r1["shape"]),
+                "projection_match": dict(r2, shape=f"{tag} K2 " + r2["shape"]),
+                "pose_lm": dict(r3, shape=f"{tag} K3 " + r3["shape"])}
+        for r in rows.values():
+            log(f"{r['shape']}: max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms through the "
+                f"wrapper, {r['ms_kernel_only']:.4f} ms kernel alone (plain {r['plain_ms']:.3f} "
+                f"ms; bound {r['bound_ms']:.6f} ms {r['bound_by']})")
+        if not r1["exact"]:
+            fail(f"{tag}: K1 differs from its plain version")
+        if not r2["exact"]:
+            fail(f"{tag}: K2 differs from its plain version")
+        if not r3["ok"]:
+            fail(f"{tag}: K3 differs from its plain version beyond T atol 1e-3 / 0.99 inliers")
+        return rows
+
+
+def depth_system_run(s, dev, feed, n, prof_frames=None):
+    """Drive ``feed(i)`` for i < n on System ``s`` with the launch counts
+    reset just before; a profiler window over ``prof_frames`` (kept out of
+    the frame times).  Returns (poses, launch counts, wall s, profile
+    summary or None)."""
+    import torch
+    from openvslam_tpu_torch import kernels
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    poses, by_name, i = [], None, 0
+    sync()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    while i < n:
+        if dev.type == "cuda" and prof_frames is not None and i == prof_frames[0]:
+            by_name = profile_window(lambda j: poses.append(feed(j)), prof_frames)
+            i = prof_frames[-1] + 1
+            continue
+        poses.append(feed(i))
+        i += 1
+    sync()
+    return poses, kernels.launch_counts(), time.perf_counter() - t, by_name
+
+
+def frame_ms(s, warm: int, skip=()) -> np.ndarray:
+    return np.array([x for j, x in enumerate(s.track_times) if j >= warm and j not in skip]) * 1e3
+
+
+def stereo_phase(dev, frames):
+    """Phase 7: the stereo System at KITTI 00's full width (``kitti_config_dict``)
+    on ``frames`` (``stereo_pairs``): synchronously frame by frame, then with
+    async mapping through ``feed_sequence(kind="stereo", depth=3)``.  Gates
+    of tests/test_stereo_rgbd_e2e.py: tracked > 0.90 and ATE(se3) < 0.08 m,
+    the first pose at frame 0 (the depth bootstrap).  The first frame's
+    bootstrap is replayed on the CPU through the same entry point (landmark
+    count exact, positions within 1e-5 relative), the first and last local
+    BA problems are re-solved on the CPU (``ba_agreement``), and K1, K2 and
+    K3 are held against their plain versions at the shapes the run gave
+    them.  Returns (summary dict, {run: launch counts}, kernel rows)."""
+    import torch
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.ops.stereo import stereo_match_dense
+    from openvslam_tpu_torch.optimize.ba import BAResult, make_local_ba
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate
+
+    cfg = Config.from_dict(kitti_config_dict())
+    cam = cfg.camera
+    pairs, gt = frames
+    n, warm, prof = len(pairs), 10, range(60, 70)
+    s = System(cfg, device=dev)
+    local_ba, bas = s.mapper.local_ba, []
+
+    def spy_ba(prob):
+        res = local_ba(prob)
+        bas[1 if bas else 0:] = [(prob, res)]      # the first and the last
+        return res
+
+    s.mapper.local_ba = spy_ba
+    s.startup()
+    boot = {}
+
+    def feed(i):
+        pose = s.feed_stereo_frame(*pairs[i], i / cam.fps)
+        if i == 0:
+            ids = s.map_db.valid_lm_ids()
+            boot.update(n=len(ids), X=s.map_db.lm_pos[ids].copy())
+        return pose
+
+    cap = KernelCapture(s.tracker.LOCAL_LM_CAP)
+    try:
+        poses, counts, wall, by_name = depth_system_run(s, dev, feed, n, prof)
+    finally:
+        cap.restore()
+    s.shutdown()
+    st = s.stats()
+    m = s.mapper
+    tracked = np.array([p is not None for p in poses])
+    first = int(np.argmax(tracked)) if tracked.any() else -1
+    ate = se3_ate(poses, gt, evaluate)
+    tt = frame_ms(s, warm, prof)
+    prof_sum = (profile_summary(by_name, len(prof), float(np.median(tt)))
+                if by_name is not None else None)
+    # the depth bootstrap through the same entry point on the CPU
+    cs = System(cfg, device="cpu")
+    cs.feed_stereo_frame(*pairs[0], 0.0)
+    ids = cs.map_db.valid_lm_ids()
+    Xc = cs.map_db.lm_pos[ids]
+    boot_rel = (float((np.linalg.norm(boot["X"] - Xc, axis=-1)
+                       / np.maximum(np.linalg.norm(Xc, axis=-1), 1e-9)).max())
+                if len(ids) == boot["n"] else None)
+    boot_ok = boot_rel is not None and boot_rel <= 1e-5
+    # one stereo local BA and the last, re-solved on the CPU
+    ba_cpu = make_local_ba(cam, m.BA_FIRST_ITERS, m.BA_SECOND_ITERS, stereo=True)
+    ba_rows = [ba_agreement(cam, prob.to("cpu"), BAResult(*(t.cpu() for t in res)),
+                            ba_cpu(prob.to("cpu"))) for prob, res in bas]
+    # the dense stereo match alone, on frame 0's keypoints
+    l0, r0 = (torch.from_numpy(im).to(dev) for im in pairs[0])
+    kp0 = s.frontend.extract(l0)
+    sm_ms = cuda_ms(lambda: stereo_match_dense(l0, r0, kp0.xy, kp0.valid, cam.focal_x_baseline),
+                    20)[0]
+    sm_n = int((stereo_match_dense(l0, r0, kp0.xy, kp0.valid, cam.focal_x_baseline)[1] > 0).sum())
+    rows = cap.check("Stereo KITTI 1241x376")
+
+    # the async System through the pipelined feed, as bench.py feeds
+    sa = System(cfg, async_mapping=True, device=dev)
+    sa.startup()
+    items = ((pairs[i][0], pairs[i][1], i / cam.fps) for i in range(n))
+    apose, acounts, awall, _ = depth_system_run(
+        sa, dev, lambda i, it=iter(sa.feed_sequence(items, kind="stereo", depth=3)): next(it)[1], n)
+    settle_s = settle(sa)
+    ast = sa.stats()
+    down = clean_shutdown(sa)
+    atracked = np.array([p is not None for p in apose])
+    aate = se3_ate(apose, gt, evaluate)
+    att = frame_ms(sa, warm)
+    out = dict(
+        frames=n, first_tracked=first, tracked_share=float(tracked.mean()), ate_se3_m=ate,
+        keyframes=st["num_keyframes"], landmarks=st["num_landmarks"],
+        fused_frames=st["fused_frames"], track_ms_median=float(np.median(tt)),
+        track_ms_p90=float(np.percentile(tt, 90)), wall_s=wall,
+        stereo_match_dense_ms=sm_ms, stereo_matched_on_frame0=sm_n,
+        keypoints_on_frame0=int(kp0.valid.sum()),
+        local_ba_runs=m.ba_runs, local_ba_ms_mean=m.ba_wall_s / max(m.ba_runs, 1) * 1e3,
+        lms_created=m.lms_created, lms_created_seed=m.lms_created_seed,
+        launches=counts, launches_per_tracked_frame={k: v / max(int(tracked.sum()), 1)
+                                                     for k, v in counts.items()},
+        profile_frames_60_69=prof_sum, bootstrap_landmarks=[boot["n"], len(ids)],
+        bootstrap_X_max_rel_diff=boot_rel, ba_check=ba_rows,
+        async_tracked_share=float(atracked.mean()), async_ate_se3_m=aate,
+        async_track_ms_median=float(np.median(att)), async_track_ms_p90=float(np.percentile(att, 90)),
+        async_wall_s=awall, async_settle_s=settle_s, async_fused_frames=ast["fused_frames"],
+        async_local_ba_runs=ast["local_ba_runs"], async_local_ba_skipped=ast["local_ba_skipped"],
+        async_launches=acounts, async_shutdown=down)
+    log(f"Stereo (KITTI 1241x376, sync): first pose {first}, tracked {tracked.mean():.3f}, "
+        f"ATE(se3) {ate:.4f} m, {st['num_keyframes']} keyframes, {st['num_landmarks']} "
+        f"landmarks ({m.lms_created_seed} seeded from depth of {m.lms_created}); fused "
+        f"{st['fused_frames']}; track ms median {out['track_ms_median']:.2f} p90 "
+        f"{out['track_ms_p90']:.2f}; stereo_match_dense {sm_ms:.3f} ms ({sm_n} of "
+        f"{out['keypoints_on_frame0']} keypoints matched on frame 0); local BA {m.ba_runs} runs "
+        f"at {out['local_ba_ms_mean']:.1f} ms; launches {counts}")
+    if prof_sum is not None:
+        log(f"Stereo profile (frames 60-69): device busy {prof_sum['device_busy_ms_per_frame']:.3f} "
+            f"ms/frame over {prof_sum['kernels_per_frame']:.0f} kernels; idle share "
+            f"{prof_sum['device_idle_share']}")
+        for row in prof_sum["top"]:
+            log(f"  {row['ms_per_frame']:.4f} ms/frame x{row['calls_per_frame']:.0f}  {row['name']}")
+    log(f"Stereo bootstrap replay: landmarks card {boot['n']} CPU {len(ids)}, positions max rel "
+        f"diff {boot_rel}; local BA card vs CPU: {ba_rows}")
+    log(f"Stereo (async, feed_sequence depth 3): tracked {atracked.mean():.3f}, ATE(se3) "
+        f"{aate:.4f} m; track ms median {out['async_track_ms_median']:.2f} p90 "
+        f"{out['async_track_ms_p90']:.2f}; local BA {ast['local_ba_runs']} runs, "
+        f"{ast['local_ba_skipped']} skipped; settled in {settle_s:.2f}s; launches {acounts}; "
+        f"shutdown {down}")
+    if first != 0:
+        fail(f"Stereo: the depth bootstrap gave no pose at frame 0 (first {first})")
+    for tag, share, err in (("sync", tracked.mean(), ate), ("async", atracked.mean(), aate)):
+        if not share > 0.90:
+            fail(f"Stereo {tag}: tracked share {share:.3f} not above 0.90")
+        if not err < 0.08:
+            fail(f"Stereo {tag}: ATE(se3) {err:.4f} m not below 0.08 m")
+    if not boot_ok:
+        fail("Stereo: the card's depth bootstrap disagrees with the CPU's")
+    if not ba_rows or not all(r["ok"] for r in ba_rows):
+        fail("Stereo: the card's stereo local BA disagrees with the CPU's")
+    if not shutdown_ok(down):
+        fail(f"Stereo async: unclean shutdown or a worker exception: {down}")
+    for tag, c in (("sync", counts), ("async", acounts)):
+        if min(c.values()) == 0:
+            fail(f"Stereo {tag} did not launch every kernel: {c}")
+    return out, {"stereo": counts, "stereo_async": acounts}, rows
+
+
+def rgbd_phase(dev):
+    """Phase 7b: the RGB-D System at TUM fr1's width (``tum_config_dict``)
+    through ``feed_sequence(kind="rgbd", depth=3)`` with synchronous mapping,
+    on the wall path at 0.05 m a frame, depth maps stored as TUM stores
+    them (uint16, metres x 5000).  Gates of test_rgbd_pipelined: tracked >
+    0.90, ATE(se3) < 0.08 m, fused share > 0.6, and the first pose at frame
+    0 (the depth bootstrap); K1, K2 and K3 held against
+    their plain versions at the run's shapes.  Returns (summary dict, launch
+    counts, kernel rows)."""
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate
+
+    cfg = Config.from_dict(tum_config_dict())
+    cam = cfg.camera
+    t = time.perf_counter()
+    items, gt = rgbd_frames(cam, cfg.depthmap_factor)
+    render_s = time.perf_counter() - t
+    n = len(gt)
+    s = System(cfg, device=dev)
+    s.startup()
+    cap = KernelCapture(s.tracker.LOCAL_LM_CAP)
+    try:
+        poses, counts, wall, _ = depth_system_run(
+            s, dev, lambda i, it=iter(s.feed_sequence(iter(items), kind="rgbd", depth=3)):
+            next(it)[1], n)
+    finally:
+        cap.restore()
+    s.shutdown()
+    st = s.stats()
+    tracked = np.array([p is not None for p in poses])
+    ate = se3_ate(poses, gt, evaluate)
+    tt = frame_ms(s, 10)
+    fused = st["fused_frames"] / n
+    rows = cap.check("RGB-D TUM 640x480")
+    out = dict(frames=n, render_s=render_s, first_tracked=int(np.argmax(tracked)),
+               tracked_share=float(tracked.mean()), ate_se3_m=ate, fused_share=fused,
+               keyframes=st["num_keyframes"], landmarks=st["num_landmarks"],
+               track_ms_median=float(np.median(tt)), track_ms_p90=float(np.percentile(tt, 90)),
+               wall_s=wall, local_ba_runs=st["local_ba_runs"], launches=counts)
+    log(f"RGB-D (TUM 640x480, feed_sequence depth 3): tracked {tracked.mean():.3f}, ATE(se3) "
+        f"{ate:.4f} m, fused share {fused:.3f}, {st['num_keyframes']} keyframes; track ms "
+        f"median {out['track_ms_median']:.2f} p90 {out['track_ms_p90']:.2f}; wall {wall:.1f}s "
+        f"(rendered in {render_s:.1f}s); launches {counts}")
+    if out["first_tracked"] != 0:
+        fail(f"RGB-D: the depth bootstrap gave no pose at frame 0 (first {out['first_tracked']})")
+    if not tracked.mean() > 0.90:
+        fail(f"RGB-D: tracked share {tracked.mean():.3f} not above 0.90")
+    if not ate < 0.08:
+        fail(f"RGB-D: ATE(se3) {ate:.4f} m not below 0.08 m")
+    if not fused > 0.6:
+        fail(f"RGB-D: fused share {fused:.3f} not above 0.6")
+    if min(counts.values()) == 0:
+        fail(f"RGB-D did not launch every kernel: {counts}")
+    return out, counts, rows
+
+
+def stereo_loop_phase(dev):
+    """Phase 7c: the stereo loop at tests/test_stereo_loop.py's own point
+    (``STEREO_LOOP_POINT``), synchronous mapping, frame by frame.  Gates:
+    a pose within the first 5 frames, tracked > 0.90 after it, at least
+    one loop closed with a loop edge, the Sim3 scale of every correction 1
+    within 1e-6 (a metric map's scale is locked), and keyframe ATE(se3) at
+    most ``LOOP_ATE_MARGIN`` times the JAX System's reading at this point.
+    Returns (summary dict, launch counts)."""
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate, synthetic
+
+    cfg = Config.from_dict(stereo_loop_config_dict())
+    cam = cfg.camera
+    scene, gt, shift = stereo_loop_scene(synthetic, cam)
+    n = len(gt)
+    s = System(cfg, device=dev)
+    go = s.global_optimizer
+    scales, correct = [], go.correct_loop
+
+    def spy_correct(kf, cand, g, *a, **kw):
+        scales.append(float(g[2]))
+        return correct(kf, cand, g, *a, **kw)
+
+    go.correct_loop = spy_correct
+    s.startup()
+    render = [0.0]
+
+    def feed(i):
+        t = time.perf_counter()
+        pair = scene.render(cam, gt[i]), scene.render(cam, shift @ gt[i])
+        render[0] += time.perf_counter() - t
+        return s.feed_stereo_frame(*pair, i / cam.fps)
+
+    poses, counts, wall, _ = depth_system_run(s, dev, feed, n)
+    s.shutdown()
+    tracked = np.array([p is not None for p in poses])
+    first = int(np.argmax(tracked)) if tracked.any() else -1
+    share = float(tracked[first:].mean()) if first >= 0 else 0.0
+    db = s.map_db
+    kf_ate = keyframe_ate(db, gt, evaluate, align="se3")
+    gate = LOOP_ATE_MARGIN * STEREO_LOOP_REF_KF_ATE_M
+    loop_edge = any(db.loop_edges[int(k)] for k in db.valid_kf_ids())
+    tm = {k: [x * 1e3 for x in v] for k, v in go.timings.items()}
+    out = dict(frames=n, first_tracked=first, tracked_share_after_first=share,
+               keyframes=int(len(db.valid_kf_ids())), loops_closed=go.num_loops_closed,
+               loop_edge=loop_edge, correction_scales=scales, keyframe_ate_se3_m=kf_ate,
+               keyframe_ate_gate_m=gate, wall_s=wall, render_s=render[0],
+               validation_ms=tm["validate"], pose_graph_ms=tm["pose_graph"],
+               global_ba_ms=tm["global_ba"], launches=counts)
+    log(f"Stereo loop (320x240, sync): first pose {first}, tracked {share:.3f}, "
+        f"{out['keyframes']} keyframes, loops closed {go.num_loops_closed} (edge {loop_edge}), "
+        f"correction scales {scales}, KF ATE(se3) {kf_ate:.4f} m (gate {gate:.3f} m); "
+        f"validation ms {[round(x, 1) for x in tm['validate']]}, pose graph ms "
+        f"{tm['pose_graph']}, global BA ms {tm['global_ba']}; wall {wall:.1f}s of which render "
+        f"{render[0]:.1f}s; launches {counts}")
+    if first < 0 or first >= 5:
+        fail(f"Stereo loop: no pose within the first 5 frames (first {first})")
+    if not share > 0.90:
+        fail(f"Stereo loop: tracked share {share:.3f} not above 0.90")
+    if go.num_loops_closed < 1 or not loop_edge:
+        fail("Stereo loop: no loop closed")
+    if not all(abs(x - 1.0) <= 1e-6 for x in scales):
+        fail(f"Stereo loop: a correction's Sim3 scale is not locked at 1: {scales}")
+    if not kf_ate <= gate:
+        fail(f"Stereo loop: keyframe ATE(se3) {kf_ate:.4f} m above {gate:.3f} m")
+    if min(counts.values()) == 0:
+        fail(f"Stereo loop did not launch every kernel: {counts}")
+    return out, counts
+
+
 def ba_agreement(cam, prob, res, ref, allow_flips: bool = False):
     """How closely a BA result ``res`` agrees with ``ref`` on the same
     problem.  Raw pose and point differences are reported; the pass
@@ -1043,14 +1663,14 @@ def ba_agreement(cam, prob, res, ref, allow_flips: bool = False):
     solutions (the band a 0.05 px reprojection difference spans there)
     may change side; such flips are counted and reported."""
     import torch
-    from openvslam_tpu_torch.optimize.ba import mono_residuals
-    from openvslam_tpu_torch.optimize.residuals import CHI2_2D
+    from openvslam_tpu_torch.optimize.ba import reprojection_residuals
+    from openvslam_tpu_torch.optimize.residuals import CHI2_2D, CHI2_3D
     from openvslam_tpu_torch.utils import evaluate
 
     cv, lv = prob.cam_valid, prob.lm_valid
     n = int(prob.obs_mask.sum())
     oc, ol, uv = prob.obs_cam[:n].long(), prob.obs_lm[:n].long(), prob.obs_uv[:n]
-    resid = [mono_residuals(cam, r.T_cw, r.X, oc, ol, uv)[0] for r in (res, ref)]
+    resid = [reprojection_residuals(cam, r.T_cw, r.X, oc, ol, uv)[0] for r in (res, ref)]
     pred = [uv - r for r in resid]
     inl = ref.obs_inlier[:n]
     reproj = float((pred[0] - pred[1]).norm(dim=-1)[inl].max()) if bool(inl.any()) else 0.0
@@ -1060,7 +1680,8 @@ def ba_agreement(cam, prob, res, ref, allow_flips: bool = False):
     near = torch.ones_like(flip)
     for r in resid:
         c2 = (r * r).sum(-1) / prob.obs_sigma2[:n]
-        near &= (c2 - CHI2_2D).abs() <= 0.05 * CHI2_2D
+        thr = CHI2_3D if uv.shape[-1] == 3 else CHI2_2D
+        near &= (c2 - thr).abs() <= 0.05 * thr
     flips_near = bool((near | ~flip).all()) and bool(torch.equal(res.obs_inlier[n:],
                                                                  ref.obs_inlier[n:]))
     dT = float((res.T_cw - ref.T_cw)[cv].abs().max())
@@ -1151,7 +1772,6 @@ def main() -> int:
     poses_d = [torch.from_numpy(p.astype(np.float32)).to(dev) for p in poses]
 
     report = {}
-    c_fast, c_match, c_lm = (kernels.library(n) for n in ("fast", "match", "pose_lm"))
 
     # K1 on all 8 levels of frame 1 at FrameStep's budgets, without and with
     # a random mask: the pools and the selection after them against the
@@ -1161,48 +1781,21 @@ def main() -> int:
     budgets = fs.frontend.budgets
     keep_px = torch.from_numpy(np.random.default_rng(3).random((480, 640)) > 0.3).to(dev)
     masks1 = [pyramid.resize_nearest(keep_px.to(torch.float32), s) for s in shapes]
-    exact1, err1 = True, 0.0
-    for tag, ms in (("no mask", None), ("mask", masks1)):
-        vk, ik = fast.fast_cell_pools(levels, 20.0, 7.0, budgets, masks=ms)
-        vp, ip = fast.fast_cell_pools_plain(levels, 20.0, 7.0, budgets, masks=ms)
-        dk = fast.detect_levels(levels, 20.0, 7.0, budgets, masks=ms)
-        dp = fast.select_from_pools(vp, ip, shapes, budgets)
-        same_pools = torch.equal(vk, vp) and torch.equal(ik, ip)
-        same_kp = all(torch.equal(a, b) for x, y in zip(dk, dp) for a, b in zip(x, y))
-        exact1 &= same_pools and same_kp
-        err1 = max(err1, float(torch.where(vk == vp, 0.0, (vk - vp).abs()).max()),
-                   float((ik - ip).abs().max()))
-        log(f"K1 {tag}: pools exact {same_pools}, detect_levels exact {same_kp}; "
-            f"{int((vk > 0).sum())} corners in the pools, {int(dk[0][2].sum())} kept on level 0")
-    px = sum(im.numel() for im in levels)
-    ms1, lo1, hi1 = cuda_ms(lambda: fast.fast_cell_pools(levels, 20.0, 7.0, budgets), 200)
-    args1, _, keep1 = fast.kernel_args(levels, 20.0, 7.0, budgets)
-    ko1 = cuda_ms(lambda: c_fast(*args1), 200)[0]
-    pms1 = cuda_ms(lambda: fast.fast_cell_pools_plain(levels, 20.0, 7.0, budgets), 10,
-                   repeats=1)[0]
-    # least work of the fused stage on this frame: per pixel 100 operations
-    # for the lower-threshold pass masks (16 differences, 32 compares, 32 bit
-    # inserts, two 10-operation 9-run tests), 8 NMS compares and 2 for the
-    # preference; per pixel with a lower-threshold arc 160 (16 sliding arc
-    # sums, per threshold and polarity 16 compares and 16 maxima); per cell
-    # k_cell rounds of a 1024-wide maximum.  Bytes: every level read once,
-    # the pools written once
-    arc_px = sum(int((fast.fast_score_maps(im, [7.0])[0] > 0).sum()) for im in levels)
-    geo1 = fast.pool_geometry(tuple(shapes), tuple(budgets), 32)
-    topk_ops = sum(n * k * 1024 for n, k in zip(geo1.cells, geo1.k_cell))
-    b1, by1 = bound(px * 110 + arc_px * 160 + topk_ops, H100_F32_OPS_PER_S,
-                    px * 4 + len(levels) * geo1.vmax * (4 + 8))
+    k1 = check_k1(levels, budgets, masks=(None, masks1))
+    exact1, err1 = k1["exact"], k1["max_abs_err"]
     report["fast_score_maps"] = dict(
         name="fast_cell_pools", route="cuda", source="openvslam_tpu_torch/csrc/fast.cu",
         replaces="openvslam_tpu/ops/pallas/fast_kernel.py:102", max_abs_err=err1,
-        ms=ms1, ms_kernel_only=ko1, plain_ms=pms1, bound_ms=b1, bound_by=by1,
-        library_ms=None, arc_pixels=arc_px, pixels=px,
-        check=f"pools and detect_levels bit-exact on {len(levels)} levels ({px} px), "
+        ms=k1["ms"], ms_kernel_only=k1["ms_kernel_only"], plain_ms=k1["plain_ms"],
+        bound_ms=k1["bound_ms"], bound_by=k1["bound_by"], library_ms=None,
+        arc_pixels=k1["arc_pixels"], pixels=k1["pixels"], shapes=[k1],
+        check=f"pools and detect_levels bit-exact on {len(levels)} levels ({k1['pixels']} px), "
               f"without and with a mask: {exact1}")
-    log(f"K1 fast_cell_pools: {px} px, {arc_px} with a lower-threshold arc, {len(levels)} x "
-        f"{geo1.vmax} pools; exact={exact1}, max_abs_err={err1}; {ms1:.4f} ms [{lo1:.4f}, "
-        f"{hi1:.4f}] through the wrapper, {ko1:.4f} ms kernel alone (plain {pms1:.3f} ms; "
-        f"bound {b1:.6f} ms {by1})")
+    log(f"K1 fast_cell_pools: {k1['pixels']} px, {k1['arc_pixels']} with a lower-threshold arc, "
+        f"{len(levels)} x {k1['pool_width']} pools; exact={exact1}, max_abs_err={err1}; "
+        f"{k1['ms']:.4f} ms [{k1['ms_lo']:.4f}, {k1['ms_hi']:.4f}] through the wrapper, "
+        f"{k1['ms_kernel_only']:.4f} ms kernel alone (plain {k1['plain_ms']:.3f} ms; bound "
+        f"{k1['bound_ms']:.6f} ms {k1['bound_by']})")
     if not exact1:
         fail("K1 differs from its plain version")
 
@@ -1232,40 +1825,16 @@ def main() -> int:
              vist, 7.0 * fs.scale_factors[torch.clamp(lvl0_d, 0, 7)], lvl0_d,
              cam.undistort_keypoints(kp1t.xy), kp1t.level, kp1t.valid)
     image = dict(image_size=(cam.cols, cam.rows))
-    exact2, shapes2, matched2 = True, [], {}
+    exact2, shapes2 = True, []
     for tag, a2, kw2 in (("L4096xK1064 FrameStep", margs, dict(ratio=0.9)),
                          ("L1032xK1032 TrackStep motion 7px", targs, {})):
-        for ratio, cross in ((0.9, True), (None, True), (0.9, False), (None, False)):
-            for md in (M.HAMMING_DIST_THR_HIGH, M.HAMMING_DIST_THR_LOW):
-                ik, dk = M.projection_scale_match(*a2, max_dist=md, ratio=ratio,
-                                                  cross_check=cross, **image)
-                ip, dp = M.projection_scale_match_plain(*a2, max_dist=md, ratio=ratio,
-                                                        cross_check=cross)
-                exact2 &= torch.equal(ik, ip) and torch.equal(dk, dp)
-        nomatch = M.projection_scale_match(*a2[:3], torch.zeros_like(a2[3]), *a2[4:], **image)[0]
-        exact2 &= bool((nomatch == -1).all())
-        ik, dk = M.projection_scale_match(*a2, **kw2, **image)
-        ip, dp = M.projection_scale_match_plain(*a2, **kw2)
-        err2 = float(max((ik - ip).abs().max(), (dk - dp).abs().max()))
-        matched2[tag] = int((ik >= 0).sum())
-        ms_w, lo_w, hi_w = cuda_ms(lambda: M.projection_scale_match(*a2, **kw2, **image), 200)
-        args2, _, keep2 = M.kernel_args(*a2, **kw2, **image)
-        ms_k = cuda_ms(lambda: c_match(*args2), 200)[0]
-        pms = cuda_ms(lambda: M.projection_scale_match_plain(*a2, **kw2), 10, repeats=1)[0]
-        Lr = a2[0].shape[0]
-        # least work: the distances of the pairs the gate passes (8 XOR,
-        # 8 popcount, 8 adds each); bytes: every input once, idx and dist once
-        gate = M.projection_gate(a2[2], a2[3], a2[6], a2[4]) & a2[8][None, :]
-        gate &= (torch.abs(a2[7][None, :] - a2[5][:, None]) <= 1) | (a2[5] < 0)[:, None]
-        pairs = int(gate.sum())
-        nbytes = sum(t.numel() * t.element_size() for t in a2) + 2 * 4 * Lr
-        b2, by2 = bound(pairs * 24, H100_F32_OPS_PER_S, nbytes)
-        shapes2.append(dict(shape=tag, ms=ms_w, ms_kernel_only=ms_k, plain_ms=pms, bound_ms=b2,
-                            bound_by=by2, gate_pairs=pairs, matched=matched2[tag],
-                            max_abs_err=err2))
-        log(f"K2 projection_match {tag}: visible rows {int(a2[3].sum())}, gate pairs {pairs}, "
-            f"matched {matched2[tag]}, {ms_w:.4f} ms [{lo_w:.4f}, {hi_w:.4f}] through the "
-            f"wrapper, {ms_k:.4f} ms kernel alone (plain {pms:.3f} ms; bound {b2:.6f} ms {by2})")
+        r2 = check_k2(a2, kw2, (cam.cols, cam.rows))
+        exact2 &= r2["exact"]
+        shapes2.append(dict(r2, shape=tag))
+        log(f"K2 projection_match {tag}: visible rows {r2['visible']}, gate pairs "
+            f"{r2['gate_pairs']}, matched {r2['matched']}, {r2['ms']:.4f} ms [{r2['ms_lo']:.4f}, "
+            f"{r2['ms_hi']:.4f}] through the wrapper, {r2['ms_kernel_only']:.4f} ms kernel alone "
+            f"(plain {r2['plain_ms']:.3f} ms; bound {r2['bound_ms']:.6f} ms {r2['bound_by']})")
     adv = synthetic.adversarial_match_cases(np.random.default_rng(9))
     for name, a2 in adv.items():
         a2 = [t.to(dev) for t in a2]
@@ -1311,29 +1880,14 @@ def main() -> int:
     kp_args = (poses_d[0], X_k, und, fs.sigma2[kp1.level], m_k)
     err3, agree3, shapes3 = 0.0, 1.0, []
     for tag, args in (("N1064 TrackStep", kp_args), ("N4096 FrameStep", lm_args)):
-        Tk, ink, nk, _ = pose_lm.pose_lm(*args, **kw)
-        Tp, inp, npl, _ = pose_lm.pose_lm_plain(*args, **kw)
-        dT = float((Tk - Tp).abs().max())
-        agree = float((ink == inp).float().mean())
-        err3, agree3 = max(err3, dT), min(agree3, agree)
-        ms_w, lo_w, hi_w = cuda_ms(lambda: pose_lm.pose_lm(*args, **kw), 50)
-        args3, _, keep3 = pose_lm.kernel_args(*args, **kw)
-        ms_k = cuda_ms(lambda: c_lm(*args3), 50)[0]
-        pms = cuda_ms(lambda: pose_lm.pose_lm_plain(*args, **kw), 3, warmup=1, repeats=1)[0]
-        N3, m3 = args[1].shape[0], int(args[4].sum())
-        # least work: per pass over the masked rows one evaluation (~110
-        # flops) and the 27 normal-equation entries (~8 flops each), 4 rounds
-        # x (10 + 1) passes; one evaluation of every row for chi2.  Bytes:
-        # every input once, chi2, inliers and the pose once
-        ops3 = 44 * m3 * (110 + 27 * 8) + N3 * 110
-        nbytes = sum(t.numel() * t.element_size() for t in args) + N3 * 5 + 64 + 8
-        b3, by3 = bound(ops3, H100_F32_OPS_PER_S, nbytes)
-        shapes3.append(dict(shape=tag, masked=m3, ms=ms_w, ms_kernel_only=ms_k, plain_ms=pms,
-                            bound_ms=b3, bound_by=by3, max_abs_err=dT, inlier_agreement=agree))
-        log(f"K3 pose_lm {tag} ({m3} masked rows): "
-            f"dT={dT:.3e} inliers {int(nk)} vs plain {int(npl)}, agreement {agree:.4f}; "
-            f"{ms_w:.4f} ms [{lo_w:.4f}, {hi_w:.4f}] through the wrapper, {ms_k:.4f} ms kernel "
-            f"alone (plain {pms:.3f} ms; bound {b3:.6f} ms {by3})")
+        r3 = check_k3(args, kw)
+        err3, agree3 = max(err3, r3["max_abs_err"]), min(agree3, r3["inlier_agreement"])
+        shapes3.append(dict(r3, shape=tag))
+        log(f"K3 pose_lm {tag} ({r3['masked']} masked rows): dT={r3['max_abs_err']:.3e} inliers "
+            f"{r3['inliers'][0]} vs plain {r3['inliers'][1]}, agreement "
+            f"{r3['inlier_agreement']:.4f}; {r3['ms']:.4f} ms [{r3['ms_lo']:.4f}, "
+            f"{r3['ms_hi']:.4f}] through the wrapper, {r3['ms_kernel_only']:.4f} ms kernel alone "
+            f"(plain {r3['plain_ms']:.3f} ms; bound {r3['bound_ms']:.6f} ms {r3['bound_by']})")
     top3 = shapes3[0]
     report["pose_lm"] = dict(
         name="pose_lm", route="cuda", source="openvslam_tpu_torch/csrc/pose_lm.cu",
@@ -1530,13 +2084,30 @@ def main() -> int:
     lap = LapRender(Config.from_dict(loop_config_dict()).camera, ASYNC_LOOP_FRAMES)
     aloop_out, aloop_counts = async_loop_phase(
         dev, (lap, lap[revisit_index(ASYNC_LOOP_FRAMES)], lap.gt))
+    del lap
+
+    # ---------------------------------------------------------------- 7
+    pairs = stereo_pairs(Config.from_dict(kitti_config_dict()).camera)
+    stereo_out, stereo_counts, stereo_rows = stereo_phase(dev, pairs)
+    del pairs
+
+    # ---------------------------------------------------------------- 7b
+    rgbd_out, rgbd_counts, rgbd_rows = rgbd_phase(dev)
+
+    # ---------------------------------------------------------------- 7c
+    sloop_out, sloop_counts = stereo_loop_phase(dev)
 
     # ---------------------------------------------------------------- out
     kernels_out = []
+    depth_counts = dict(stereo_counts, rgbd=rgbd_counts, stereo_loop=sloop_counts)
     for key, r in report.items():
+        shapes = r["shapes"] + [stereo_rows[key], rgbd_rows[key]]
         kernels_out.append(dict(
-            r, launches=(fs_counts[key] + ts_counts[key] + sys_counts[key] + loop_counts[key]
-                         + async_counts[key] + aloop_counts[key]),
+            r, shapes=shapes, max_abs_err=max(x["max_abs_err"] for x in shapes),
+            launches=(fs_counts[key] + ts_counts[key] + sys_counts[key] + loop_counts[key]
+                      + async_counts[key] + aloop_counts[key]
+                      + sum(c[key] for c in depth_counts.values())),
+            **{f"launches_{run}": c[key] for run, c in depth_counts.items()},
             launches_framestep=fs_counts[key], launches_trackstep=ts_counts[key],
             launches_system=sys_counts[key],
             launches_system_per_tracked_frame=sys_out["launches_per_tracked_frame"][key],
@@ -1545,7 +2116,8 @@ def main() -> int:
             launches_loop_async=aloop_counts[key]))
         log(f"kernel {r['name']}: launches FrameStep {fs_counts[key]} TrackStep {ts_counts[key]} "
             f"System {sys_counts[key]} Loop {loop_counts[key]} System async {async_counts[key]} "
-            f"Loop async {aloop_counts[key]}; max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
+            f"Loop async {aloop_counts[key]} "
+            f"{' '.join(f'{run} {c[key]}' for run, c in depth_counts.items())}; max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
             f"({r['ms_kernel_only']:.4f} ms kernel alone) vs plain {r['plain_ms']:.3f} ms; "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     print(json.dumps({"profile": {"framestep": fs_prof, "trackstep": ts_prof,
@@ -1569,11 +2141,21 @@ def main() -> int:
                    system_async_ate_sim3_m=async_out["ate_sim3_m"],
                    loop_async_loops_closed=aloop_out["loops_closed"],
                    loop_async_keyframe_ate_sim3_m=aloop_out["keyframe_ate_sim3_m"],
+                   stereo_tracked_share=stereo_out["tracked_share"],
+                   stereo_ate_se3_m=stereo_out["ate_se3_m"],
+                   stereo_track_ms_median=stereo_out["track_ms_median"],
+                   stereo_async_ate_se3_m=stereo_out["async_ate_se3_m"],
+                   rgbd_ate_se3_m=rgbd_out["ate_se3_m"], rgbd_fused_share=rgbd_out["fused_share"],
+                   stereo_loop_loops_closed=sloop_out["loops_closed"],
+                   stereo_loop_keyframe_ate_se3_m=sloop_out["keyframe_ate_se3_m"],
                    seconds=time.perf_counter() - T0)
     print(json.dumps({"system": sys_out}), flush=True)
     print(json.dumps({"loop": loop_out}), flush=True)
     print(json.dumps({"system_async": async_out}), flush=True)
     print(json.dumps({"loop_async": aloop_out}), flush=True)
+    print(json.dumps({"stereo": stereo_out}), flush=True)
+    print(json.dumps({"rgbd": rgbd_out}), flush=True)
+    print(json.dumps({"stereo_loop": sloop_out}), flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(card, flush=True)

@@ -74,3 +74,7 @@ class Perspective:
         v = self.fy * pts_cam[..., 1] / zs + self.cy
         valid = (z > 0.0) & (u >= 0.0) & (u < self.cols) & (v >= 0.0) & (v < self.rows)
         return torch.stack([u, v], -1), z, valid
+
+    def stereo_right_u(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Right-image u of a point at ``uv`` and ``depth`` (ref x_right)."""
+        return uv[..., 0] - self.focal_x_baseline / torch.clamp(depth, min=1e-9)

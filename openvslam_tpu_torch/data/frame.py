@@ -47,8 +47,9 @@ class Frame:
         return int(self.valid.sum())
 
     @classmethod
-    def from_keypoints(cls, frame_id, timestamp, kp, cam):
-        """kp: models.frontend.Keypoints (tensors on any device)."""
+    def from_keypoints(cls, frame_id, timestamp, kp, cam, x_right=None, depth=None):
+        """kp: models.frontend.Keypoints (tensors on any device); x_right and
+        depth (K,) host arrays of a stereo/RGB-D frame (-1: none)."""
         host = lambda t: t.cpu().numpy()  # noqa: E731
         xy = host(kp.xy)
         valid = host(kp.valid)
@@ -66,8 +67,8 @@ class Frame:
             desc_u32=desc_u32,
             desc_i8=unpack_bits_host(desc_u32, valid),
             valid=valid,
-            x_right=np.full(K, -1.0, np.float32),
-            depth=np.full(K, -1.0, np.float32),
+            x_right=np.full(K, -1.0, np.float32) if x_right is None else np.asarray(x_right),
+            depth=np.full(K, -1.0, np.float32) if depth is None else np.asarray(depth),
             lm_idx=np.full(K, -1, np.int32),
             outlier=np.zeros(K, bool),
         )

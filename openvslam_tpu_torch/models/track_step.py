@@ -1,10 +1,14 @@
-"""Fused per-frame tracking step of the live pipeline, mono mode
-(counterpart of ``openvslam_tpu/models/track_step.py``):
+"""Fused per-frame tracking step of the live pipeline (counterpart of
+``openvslam_tpu/models/track_step.py``):
 
   extract (pyramid + FAST kernel K1 + rBRIEF)
+  -> stereo: per-keypoint right u and depth by the dense SAD match against
+     the right image; rgbd: depth sampled from the metric depth map at each
+     keypoint and a virtual right u (mono: -1)
   -> motion-model projection match against the last frame's landmarks
      (radius 7, widened to 14 when fewer than 20 match; kernel K2 twice)
-  -> pose-only LM (kernel K3)
+  -> pose-only LM (kernel K3; (u, v, u_right) observations in the stereo
+     and rgbd modes, u_right < 0 marking a keypoint without depth)
   -> local-map projection match around that pose (scale-predicted radius,
      stage-1 keypoints masked; kernel K2)
   -> pose-only LM over the combined associations (kernel K3)
@@ -26,6 +30,7 @@ import torch
 from ..device import resolve_device
 from ..optimize.pose_optimizer import make_pose_optimizer
 from . import tracking_ops as TO
+from ..ops.stereo import depth_at_keypoints, stereo_match_dense
 from .frontend import OrbFrontend
 
 
@@ -64,8 +69,8 @@ class TrackStepResult(NamedTuple):
     kp_response: torch.Tensor   # (K,)
     kp_desc_u32: torch.Tensor   # (K,8)
     kp_valid: torch.Tensor      # (K,)
-    kp_x_right: torch.Tensor    # (K,) -1 (mono)
-    kp_depth: torch.Tensor      # (K,) -1 (mono)
+    kp_x_right: torch.Tensor    # (K,) -1 where no depth (always in mono)
+    kp_depth: torch.Tensor      # (K,) -1 where no depth (always in mono)
     kp_src: torch.Tensor        # (K,) -1 none, [0,P) last-frame slot, [P,P+L) local slot
     kp_inlier: torch.Tensor     # (K,) bool final LM inliers
     n_stage1: torch.Tensor      # () inliers after the motion-match LM
@@ -84,12 +89,15 @@ def _scatter_slots(idx: torch.Tensor, K: int, base: int) -> torch.Tensor:
 
 
 class TrackStep:
-    """Mono tracking step for one camera, front end and local-map capacity."""
+    """Tracking step for one camera, front end and local-map capacity.
+    ``mode`` "mono", "stereo" (``step``'s ``aux`` operand: the rectified
+    right image, u8) or "rgbd" (``aux``: the metric depth map, f32)."""
 
     def __init__(self, cam, frontend: OrbFrontend, lm_capacity: int = 4096,
                  mode: str = "mono", device="cuda"):
-        if mode != "mono":
-            raise NotImplementedError("only the mono TrackStep is ported")
+        if mode not in ("mono", "stereo", "rgbd"):
+            raise ValueError(f"unknown TrackStep mode: {mode!r}")
+        self.mode = mode
         self.device = resolve_device(device)
         if frontend.device != self.device:
             raise ValueError(f"frontend lives on {frontend.device}, step on {self.device}")
@@ -103,22 +111,33 @@ class TrackStep:
                                           dtype=torch.float32, device=self.device)
         self.sigma2 = self.scale_factors**2
         self.log_scale = float(np.log(sf))
-        self._pose_core = make_pose_optimizer(cam, stereo=False)
+        self._pose_core = make_pose_optimizer(cam, stereo=mode != "mono")
 
-    def step(self, image_u8, mask, T_pred, last: LastFrame, local: LocalMap
+    def step(self, image_u8, mask, T_pred, last: LastFrame, local: LocalMap, aux=None
              ) -> TrackStepResult:
         cam = self.cam
         dev = self.device
         P = self.prev_capacity
         T_pred = torch.as_tensor(T_pred, dtype=torch.float32, device=dev)
+        image_u8 = torch.as_tensor(image_u8, device=dev)
+        if self.mode != "mono":
+            aux = torch.as_tensor(aux, device=dev)
         prev_desc = torch.where(last.valid[:, None], last.desc_u32, 0)
         kp = self.frontend.extract(image_u8, mask)
         und = cam.undistort_keypoints(kp.xy)
         brg = cam.keypoints_to_bearings(kp.xy)
         K = kp.capacity
         sig2 = self.sigma2[torch.clamp(kp.level, 0, self.num_levels - 1)]
-        x_right = torch.full((K,), -1.0, dtype=torch.float32, device=dev)
-        depth = torch.full((K,), -1.0, dtype=torch.float32, device=dev)
+        if self.mode == "stereo":
+            x_right, depth = stereo_match_dense(image_u8, aux, kp.xy, kp.valid,
+                                                cam.focal_x_baseline)
+        elif self.mode == "rgbd":
+            x_right, depth = depth_at_keypoints(aux, kp.xy, und, kp.valid, cam.focal_x_baseline)
+        else:
+            x_right = torch.full((K,), -1.0, dtype=torch.float32, device=dev)
+            depth = torch.full((K,), -1.0, dtype=torch.float32, device=dev)
+        # stereo modes: (u, v, u_right) observations (u_right < 0: mono)
+        obs = und if self.mode == "mono" else torch.cat([und, x_right[:, None]], 1)
 
         # ---- stage 1: motion-model match (radius 7 -> widen to 14) -------
         def motion_match(radius):
@@ -135,7 +154,7 @@ class TrackStep:
         kp_lm1 = _scatter_slots(idx1, K, 0)
 
         has1 = kp_lm1 >= 0
-        res1 = self._pose_core(T_pred, last.pos[torch.clamp(kp_lm1, min=0)], und, sig2, has1)
+        res1 = self._pose_core(T_pred, last.pos[torch.clamp(kp_lm1, min=0)], obs, sig2, has1)
         # drop outlier associations before the local-map search
         kp_lm1 = torch.where(res1.inliers, kp_lm1, -1)
         prev_matched = torch.zeros(P + 1, dtype=torch.bool, device=dev)
@@ -163,7 +182,7 @@ class TrackStep:
         is_prev = (kp_src >= 0) & (kp_src < P)
         Xc = torch.where(is_prev[:, None], last.pos[torch.clamp(kp_src, 0, P - 1)],
                          local.pos[torch.clamp(kp_src - P, 0, L - 1)])
-        res2 = self._pose_core(res1.T_cw, Xc, und, sig2, kp_src >= 0)
+        res2 = self._pose_core(res1.T_cw, Xc, obs, sig2, kp_src >= 0)
 
         return TrackStepResult(
             kp_xy=kp.xy, kp_und=und, kp_bearing=brg, kp_level=kp.level,

@@ -2,7 +2,9 @@
 ``openvslam_tpu/module/global_optimization_module.py``; ref
 ``global_optimization_module.*``): BoW registration of every keyframe, loop
 detection -> Sim3 validation -> loop correction (pose and landmark
-propagation, duplicate merge) -> Sim3 pose graph -> global BA.
+propagation, duplicate merge) -> Sim3 pose graph -> global BA.  A stereo or
+RGB-D map is metric: ``fix_scale`` locks the Sim3 scale in the validation
+and in every pose-graph vertex, and the global BA takes stereo edges.
 
 Synchronous by default: the loop pipeline runs inline in
 ``queue_keyframe``, called by the mapping module after each keyframe.  In
@@ -38,6 +40,7 @@ from typing import Dict, Optional, Set
 import numpy as np
 import torch
 
+from ..camera.base import SetupType
 from ..data.bow import BowDatabase, default_vocabulary, load_vocabulary
 from ..device import resolve_device
 from ..optimize.ba import BAProblem, make_global_ba
@@ -76,7 +79,11 @@ class GlobalOptimizationModule:
         # the reference's graph_optimizer does via fix_scale
         self.pose_graph_opt = make_pose_graph_optimizer(iters=20, cg_iters=60,
                                                         fix_scale=fix_scale)
-        self.global_ba = make_global_ba(cam, iters=GLOBAL_BA_ITERS, cg_iters=GLOBAL_BA_CG_ITERS)
+        # stereo/RGB-D maps carry x_right in the global BA's third column
+        # (stereo edges; u_right < 0 marks a mono observation)
+        self.stereo = cam.setup != SetupType.MONOCULAR
+        self.global_ba = make_global_ba(cam, iters=GLOBAL_BA_ITERS, cg_iters=GLOBAL_BA_CG_ITERS,
+                                        stereo=self.stereo)
         self.num_loops_closed = 0
         self.abort_global_ba = False
         self.last_loop_kf = -1
@@ -521,7 +528,7 @@ class GlobalOptimizationModule:
                   len(built["cam_index"]), len(built["lm_index"]), iters,
                   "async" if self.async_global_ba else "sync")
         ba = self.global_ba if iters == GLOBAL_BA_ITERS else make_global_ba(
-            self.cam, iters=iters, cg_iters=GLOBAL_BA_CG_ITERS)
+            self.cam, iters=iters, cg_iters=GLOBAL_BA_CG_ITERS, stereo=self.stereo)
         if not self.async_global_ba:
             t0 = time.perf_counter()
             self._apply_global_ba(self._solve_global_ba(ba, built), built)
@@ -594,14 +601,14 @@ class GlobalOptimizationModule:
         lm_valid[:n_l] = True
         oc = np.zeros(O, np.int32)
         ol = np.zeros(O, np.int32)
-        ouv = np.zeros((O, 2), np.float32)
+        ouv = np.zeros((O, 3 if self.stereo else 2), np.float32)
         osg = np.ones(O, np.float32)
         om = np.zeros(O, bool)
         lm_lookup = np.full(db.n_lms, -1, np.int32)
         lm_lookup[lm_ids] = np.arange(n_l, dtype=np.int32)
         cam_lookup = np.full(db.n_kfs, -1, np.int32)
         cam_lookup[kf_ids] = np.arange(n_c, dtype=np.int32)
-        t_lm, t_kf, _, t_u, t_v, _, t_lvl = db.observation_rows()
+        t_lm, t_kf, _, t_u, t_v, t_xr, t_lvl = db.observation_rows()
         ol_all = lm_lookup[np.clip(t_lm, 0, db.n_lms - 1)]
         oc_all = cam_lookup[np.clip(t_kf, 0, db.n_kfs - 1)]
         rows = np.where((t_lm >= 0) & (ol_all >= 0) & (oc_all >= 0))[0][:O]
@@ -610,6 +617,8 @@ class GlobalOptimizationModule:
         ol[:n_obs] = ol_all[rows]
         ouv[:n_obs, 0] = t_u[rows]
         ouv[:n_obs, 1] = t_v[rows]
+        if self.stereo:
+            ouv[:n_obs, 2] = t_xr[rows]
         osg[:n_obs] = self.sigma2[np.clip(t_lvl[rows], 0, len(self.sigma2) - 1)]
         om[:n_obs] = True
         prob = (T, cam_opt, cam_valid, X, lm_valid, oc, ol, ouv, osg, om)

@@ -1,9 +1,10 @@
-"""Mapping module, mono (counterpart of
+"""Mapping module (counterpart of
 ``openvslam_tpu/module/mapping_module.py``; ref ``mapping_module.*``):
-keyframe insertion pipeline — store KF, cull fresh landmarks, triangulate
-new landmarks with covisible keyframes, fuse duplicates, local BA, cull
-redundant keyframes, hand-off to the global optimization module (BoW
-registration and loop detection).
+keyframe insertion pipeline — store KF (stereo/RGB-D: seed landmarks from
+measured depth), cull fresh landmarks, triangulate new landmarks with
+covisible keyframes, fuse duplicates, local BA (stereo edges for a stereo
+or RGB-D camera), cull redundant keyframes, hand-off to the global
+optimization module (BoW registration and loop detection).
 
 Host orchestration over the numpy map database; the numeric work runs on
 the module's device: epipolar-gated matching, checked triangulation,
@@ -18,8 +19,7 @@ no whole-map geometry rewrite (loop correction, pose graph, global BA)
 moved ``db.geom_version`` meanwhile; otherwise the result is discarded and
 counted in ``stale_discards``.
 
-Not ported here: the stereo/RGB-D depth seeding and the multi-camera BA
-window.
+Not ported here: the multi-camera BA window (merged sessions).
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..camera.base import SetupType
 from ..device import resolve_device
 from ..models import tracking_ops as TO
 from ..optimize.ba import BAProblem, make_local_ba
@@ -57,7 +58,9 @@ class MappingModule:
         self.scale_factors = np.array([sf**l for l in range(nl)], np.float32)
         self.sigma2 = self.scale_factors**2
         self.num_levels = nl
-        self.local_ba = make_local_ba(cam, self.BA_FIRST_ITERS, self.BA_SECOND_ITERS)
+        self.stereo = cam.setup != SetupType.MONOCULAR
+        self.local_ba = make_local_ba(cam, self.BA_FIRST_ITERS, self.BA_SECOND_ITERS,
+                                      stereo=self.stereo)
         self.recent_lms: List[Tuple[int, int]] = []   # (lm, born_kf)
         self.num_covis_for_triangulation = 10
         # capacity-overflow accounting: every silent truncation is counted
@@ -70,6 +73,8 @@ class MappingModule:
         self.lms_culled = 0
         self.kfs_culled = 0
         self.lms_created = 0
+        self.lms_created_seed = 0       # of which seeded from depth
+        self.seeds_skipped = 0          # depth seeds refused by the cell budget
         self.culled_ratio = 0           # found/visible ratio cull
         self.culled_obs = 0             # num_obs <= 2 at age 2 cull
         # unlocked device results discarded because a whole-map geometry
@@ -175,6 +180,10 @@ class MappingModule:
             self.global_optimizer.queue_keyframe(kf1)
             self.global_optimizer.queue_keyframe(kf2)
 
+    def after_stereo_initialization(self, kf: int):
+        if self.global_optimizer is not None:
+            self.global_optimizer.queue_keyframe(kf)
+
     def insert_keyframe(self, frame) -> int:
         """Synchronous insertion: store + full mapping pipeline."""
         t0 = time.perf_counter()
@@ -199,6 +208,8 @@ class MappingModule:
                 db.update_landmark_descriptor(lm)
                 touched.append(lm)
         db.update_landmark_geometry_batch(touched, self.cfg.feature.scale_factor, self.num_levels)
+        if self.stereo:
+            self._seed_landmarks_from_depth(frame, kf)
         db.update_connections(kf)
         self._kf_dev(kf)
         self._prune_dev_cache()
@@ -242,6 +253,59 @@ class MappingModule:
                 self.global_optimizer.queue_keyframe(kf)
                 self._phase("bow_loop", t)
 
+    def _seed_landmarks_from_depth(self, frame, kf: int):
+        """Stereo/RGB-D keyframes seed landmarks from measured depth for
+        their unmatched keypoints closer than the camera's depth threshold
+        (ref keyframe_inserter depth seeding).  With
+        ``Mapping.seed_cell_budget`` > 0 each cell of ``seed_grid`` takes
+        seeds, closest first, only up to that many landmarks in all (tracked
+        ones count), unless the keyframe tracks fewer than
+        ``seed_close_floor`` close landmarks; the default budget 0 seeds
+        every candidate."""
+        db = self.db
+        thr = self.cam.depth_threshold
+        has = frame.valid & (frame.depth > 0) & (frame.depth < thr) & (db.kf_lm_idx[kf] < 0)
+        cand = np.where(has & (frame.bearing[:, 2] > 1e-6))[0]
+        budget = self.cfg.mapping.seed_cell_budget
+        tracked = np.where(db.kf_lm_idx[kf] >= 0)[0]
+        if budget > 0 and len(cand):
+            close = int(((frame.depth[tracked] > 0) & (frame.depth[tracked] < thr)).sum())
+            if close < self.cfg.mapping.seed_close_floor:
+                budget = 0
+        if budget > 0 and len(cand):
+            gr, gc = self.cfg.mapping.seed_grid
+            ch, cw = self.cam.rows / gr, self.cam.cols / gc
+
+            def cell_of(xy):
+                r = np.minimum((xy[:, 1] // ch).astype(int), gr - 1)
+                c = np.minimum((xy[:, 0] // cw).astype(int), gc - 1)
+                return r * gc + c
+
+            cover = np.zeros(gr * gc, np.int32)
+            if len(tracked):
+                np.add.at(cover, cell_of(frame.xy[tracked]), 1)
+            order = cand[np.argsort(frame.depth[cand])]      # closest first
+            keep = []
+            for i, c in zip(order, cell_of(frame.xy[order])):
+                if cover[c] < budget:
+                    cover[c] += 1
+                    keep.append(i)
+            self.seeds_skipped += len(cand) - len(keep)
+            cand = np.asarray(keep, dtype=np.int64)
+        T = db.kf_pose_cw[kf]
+        bz = frame.bearing[:, 2]
+        born = []
+        for i in cand:
+            Xc = frame.bearing[i] * (frame.depth[i] / bz[i])
+            Xw = T[:3, :3].T @ (Xc - T[:3, 3])
+            lm = db.add_landmark(Xw.astype(np.float32), frame.desc_u32[i], frame.desc_i8[i], kf)
+            db.add_observation(lm, kf, int(i))
+            born.append(lm)
+            self.recent_lms.append((lm, kf))
+        self.lms_created += len(born)
+        self.lms_created_seed += len(born)
+        db.update_landmark_geometry_batch(born, self.cfg.feature.scale_factor, self.num_levels)
+
     # ------------------------------------------------------------------
     # landmark culling (ref module/local_map_cleaner)
     # ------------------------------------------------------------------
@@ -284,9 +348,11 @@ class MappingModule:
             c1 = -T1[:3, :3].T @ T1[:3, 3]
             unmatched1 = (db.kf_lm_idx[kf] < 0) & db.kf_kpt_valid[kf]
             median_depth = self._median_scene_depth(kf)
-            # baseline-gate the neighbour set on the host, then match, check
-            # orientation and triangulate against all survivors in one batch
-            min_baseline = self.cfg.mapping.baseline_dist_thr_ratio * median_depth
+            # baseline-gate the neighbour set on the host (stereo/RGB-D: the
+            # rig's own baseline), then match, check orientation and
+            # triangulate against all survivors in one batch
+            min_baseline = (self.cam.focal_x_baseline / max(self.cam.fx, 1e-9) if self.stereo
+                            else self.cfg.mapping.baseline_dist_thr_ratio * median_depth)
             usable = []
             for nb in neighbors:
                 T2 = db.kf_pose_cw[nb]
@@ -471,7 +537,7 @@ class MappingModule:
         # fixed KFs: other observers of those landmarks, via the flat table
         lm_lookup = np.full(db.n_lms, -1, np.int32)
         lm_lookup[lm_ids] = np.arange(len(lm_ids), dtype=np.int32)
-        t_lm, t_kf, _, t_u, t_v, _, t_lvl = db.observation_rows()
+        t_lm, t_kf, _, t_u, t_v, t_xr, t_lvl = db.observation_rows()
         ol_all = lm_lookup[np.clip(t_lm, 0, db.n_lms - 1)]
         sel = (t_lm >= 0) & (ol_all >= 0)
         fixed = [int(k) for k in np.unique(t_kf[sel]) if k not in local_set and db.kf_valid[k]]
@@ -509,13 +575,15 @@ class MappingModule:
             return None
         oc = np.zeros(O, np.int64)
         ol = np.zeros(O, np.int64)
-        ouv = np.zeros((O, 2), np.float32)
+        ouv = np.zeros((O, 3 if self.stereo else 2), np.float32)
         osg = np.ones(O, np.float32)
         om = np.zeros(O, bool)
         oc[:n_obs] = oc_all[rows]
         ol[:n_obs] = ol_all[rows]
         ouv[:n_obs, 0] = t_u[rows]
         ouv[:n_obs, 1] = t_v[rows]
+        if self.stereo:
+            ouv[:n_obs, 2] = t_xr[rows]
         osg[:n_obs] = self.sigma2[np.clip(t_lvl[rows], 0, self.num_levels - 1)]
         om[:n_obs] = True
         obs_refs = (t_lm[rows].copy(), t_kf[rows].copy())

@@ -1,6 +1,8 @@
-"""Tracking module, mono (counterpart of ``openvslam_tpu/module/tracking_module.py``;
+"""Tracking module (counterpart of ``openvslam_tpu/module/tracking_module.py``;
 ref ``tracking_module.*``): the per-frame state machine NotInitialized ->
-Tracking <-> Lost.
+Tracking <-> Lost.  A monocular camera bootstraps from two views, a stereo
+or RGB-D camera from one frame's depths; their pose LM carries (u, v,
+u_right) observations.
 
 Host-side control flow over the numpy map; the numeric work runs on the
 module's device: the two-view bootstrap, projection matching (kernel K2)
@@ -18,8 +20,6 @@ launch, start the copies of the outputs to the host) and
 System's pipelined feed keeps several steps in flight; a step dispatched
 ``lead`` frames past the last finished one predicts its pose with the
 damped lead-N twist of ``_predict_pose``.
-
-Not ported here: stereo/RGB-D bootstrap.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..camera.base import SetupType
 from ..data import Frame
 from ..device import resolve_device
 from ..initialize.two_view import initialize_two_view
@@ -115,7 +116,8 @@ class TrackingModule:
         self.scale_factors = np.array([sf**l for l in range(nl)], np.float32)
         self.sigma2 = self.scale_factors**2
         self._scale_factors_dev = torch.from_numpy(self.scale_factors).to(self.device)
-        self.pose_opt = make_pose_optimizer(cam, stereo=False)
+        self.stereo = cam.setup != SetupType.MONOCULAR
+        self.pose_opt = make_pose_optimizer(cam, stereo=self.stereo)
         self.log_scale = float(np.log(sf))
         self.num_levels = nl
         # capacity-overflow accounting
@@ -168,9 +170,12 @@ class TrackingModule:
     def _frame_columns(self, frame: Frame) -> dict:
         """The frame's keypoint columns on the device, uploaded once."""
         if self._frame_dev is None or self._frame_dev[0] is not frame:
+            obs = frame.xy_undist if not self.stereo else np.concatenate(
+                [frame.xy_undist, frame.x_right[:, None]], -1).astype(np.float32)
             self._frame_dev = (frame, {
                 "desc_u32": self._dev(_u32_as_i32(frame.desc_u32)),
                 "und": self._dev(frame.xy_undist),
+                "obs": self._dev(obs),
                 "valid": self._dev(frame.valid),
                 "level": self._dev(frame.level.astype(np.int64)),
                 "sigma2": self._dev(self.sigma2[np.clip(frame.level, 0, self.num_levels - 1)]),
@@ -193,6 +198,8 @@ class TrackingModule:
     # initialization
     # ------------------------------------------------------------------
     def _try_initialize(self, frame: Frame):
+        if self.stereo:
+            return self._initialize_with_depth(frame)
         if self.init_frame is None or self.init_frame.num_valid < 100:
             self.init_frame = frame
             return None
@@ -245,6 +252,43 @@ class TrackingModule:
             self.mapper.after_initialization(kf1, kf2)
         return f2.pose_cw
 
+    def _initialize_with_depth(self, frame: Frame):
+        """Stereo/RGB-D: bootstrap from one frame's depths (ref
+        tracking_module initialization for non-monocular setups): every
+        valid keypoint with a depth becomes a landmark of the first
+        keyframe, at the frame's origin."""
+        has_depth = frame.valid & (frame.depth > 0)
+        if has_depth.sum() < 50:
+            return None
+        frame.pose_cw = np.eye(4, dtype=np.float32)
+        db = self.map_db
+        kf = db.add_keyframe(frame)
+        bz = frame.bearing[:, 2]
+        born = []
+        for i in np.where(has_depth)[0]:
+            if bz[i] <= 1e-6:
+                continue
+            X = frame.bearing[i] * (frame.depth[i] / bz[i])
+            lm = db.add_landmark(X.astype(np.float32), frame.desc_u32[i], frame.desc_i8[i], kf)
+            db.add_observation(lm, kf, int(i))
+            born.append(lm)
+            frame.lm_idx[i] = lm
+        db.update_landmark_geometry_batch(born, self.cfg.feature.scale_factor, self.num_levels)
+        db.update_connections(kf)
+        self.ref_kf = kf
+        self.last_kf_frame_id = frame.frame_id
+        self.state = TrackerState.TRACKING
+        _log.info("initialized map: depth bootstrap frame %d, %d landmarks", frame.frame_id,
+                  int(has_depth.sum()))
+        self.velocity = np.eye(4, dtype=np.float32)
+        self._pose_hist.clear()
+        self._record_pose(frame)
+        self.num_tracked = int(has_depth.sum())
+        self._peak_tracked = self.num_tracked
+        if self.mapper is not None:
+            self.mapper.after_stereo_initialization(kf)
+        return frame.pose_cw
+
     # ------------------------------------------------------------------
     # frame-to-frame tracking (the classic ladder)
     # ------------------------------------------------------------------
@@ -264,7 +308,7 @@ class TrackingModule:
         fc = self._frame_columns(frame)
         obs_mask = (frame.lm_idx >= 0) & frame.valid
         X = self.map_db.lm_pos[np.clip(frame.lm_idx, 0, None)]
-        res = self.pose_opt(self._dev(np.asarray(T_init, np.float32)), self._dev(X), fc["und"],
+        res = self.pose_opt(self._dev(np.asarray(T_init, np.float32)), self._dev(X), fc["obs"],
                             fc["sigma2"], self._dev(obs_mask))
         frame.outlier = obs_mask & ~res.inliers.cpu().numpy()
         return res.T_cw.cpu().numpy(), int(res.num_inliers)
@@ -562,16 +606,19 @@ class TrackingModule:
     # ------------------------------------------------------------------
     # fused tracking path (models.track_step): one step per frame
     # ------------------------------------------------------------------
-    def track_fused(self, image_u8, frame_id: int, timestamp: float, step, mask=None):
+    def track_fused(self, image_u8, frame_id: int, timestamp: float, step, mask=None,
+                    aux=None):
         """Drive one frame through the fused TrackStep.  Preconditions:
         state == TRACKING with a tracked last frame (the caller takes the
         classic path otherwise).  Returns (pose or None, Frame)."""
         return self.track_fused_finish(self.track_fused_dispatch(
-            image_u8, frame_id, timestamp, step, mask))
+            image_u8, frame_id, timestamp, step, mask, aux))
 
-    def track_fused_dispatch(self, image_u8, frame_id: int, timestamp: float, step, mask=None):
+    def track_fused_dispatch(self, image_u8, frame_id: int, timestamp: float, step, mask=None,
+                             aux=None):
         """Build the step's tables, launch it and start copying its outputs
-        to the host; nothing waits for the device.  The motion prediction
+        to the host; nothing waits for the device.  ``aux`` is the step's
+        right image (stereo) or metric depth map (rgbd).  The motion prediction
         reaches ``frame_id - last_frame.frame_id`` frames ahead: 1 when fed
         frame by frame, more in the pipelined feed, which dispatches frames
         before the earlier ones are finished.  Returns the in-flight handle
@@ -607,16 +654,23 @@ class TrackingModule:
             posc = np.clip(np.searchsorted(sorted_ids, cand), 0, len(sorted_ids) - 1)
             loc_prev_slot[:len(cand)] = np.where(sorted_ids[posc] == cand, order[posc], -1)
 
-        T_pred = self._predict_pose(lf, max(1, frame_id - lf.frame_id))
+        lead = max(1, frame_id - lf.frame_id)
+        T_pred = self._predict_pose(lf, lead)
         last = LastFrame(self._dev(prev_pos), self._dev(prev_desc), self._dev(prev_valid),
                          self._dev(prev_level))
         local = LocalMap(cache["pos"], cache["desc_u32"], cache["valid"], cache["maxd"],
                          self._dev(loc_prev_slot))
-        res = step.step(self._dev(image_u8), mask, self._dev(T_pred), last, local)
+        res = step.step(self._dev(image_u8), mask, self._dev(T_pred), last, local,
+                        None if aux is None else self._dev(aux))
         host, ready = self._start_readback(res)
+        # a step more than one frame ahead with fewer than two tracked poses
+        # since (re)initialization had no motion model behind its
+        # prediction (the velocity is the identity): its finish replays the
+        # classic ladder, which predicts from the frames finished by then
+        blind = lead > 1 and len(self._pose_hist) < 2
         return {"res": host, "ready": ready, "frame_id": frame_id, "timestamp": timestamp,
                 "lm_ids": lm_ids, "n": n, "cand": cand, "n_loc": cache["n"],
-                "P": P, "L": step.lm_capacity}
+                "P": P, "L": step.lm_capacity, "blind": blind}
 
     def _start_readback(self, res):
         """On the card: copy every output into pinned host memory behind
@@ -659,7 +713,7 @@ class TrackingModule:
             depth=res.kp_depth.astype(np.float32),
             lm_idx=np.full(K, -1, np.int32), outlier=np.zeros(K, bool))
         n2 = int(res.num_inliers)
-        if int(res.n_stage1) < 10 or n2 < self._lost_threshold():
+        if handle["blind"] or int(res.n_stage1) < 10 or n2 < self._lost_threshold():
             # rare path: replay the classic ladder on the extracted frame
             pose = self._track_frame(frame)
             self.last_frame = frame

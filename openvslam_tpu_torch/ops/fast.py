@@ -41,17 +41,20 @@ def _shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
 
 
 def _arc_score(diff: torch.Tensor, t: float) -> torch.Tensor:
-    """Best contiguous 9-arc of max(+-diff - t, 0) over the ring (H,W,16),
-    through circular prefix sums (all sums are of small integers: exact)."""
+    """Best contiguous 9-arc of max(+-diff - t, 0) over the ring (16,H,W):
+    window sums and all-positive flags of 9 consecutive ring entries by
+    doubling (1, 2, 4, 8, then 9).  On the integer-valued levels and
+    thresholds that K1 takes every sum is a small integer, so the result
+    does not depend on the order of the additions."""
 
     def arc(mag):
-        m = torch.cat([mag, mag[..., : _ARC - 1]], -1)
-        zero = torch.zeros_like(m[..., :1])
-        cf = torch.cat([zero, torch.cumsum((m > 0.0).to(torch.float32), -1)], -1)
-        cm = torch.cat([zero, torch.cumsum(m, -1)], -1)
-        wf = cf[..., _ARC:] - cf[..., :-_ARC]
-        wm = cm[..., _ARC:] - cm[..., :-_ARC]
-        return torch.where(wf >= _ARC, wm, torch.zeros_like(wm)).amax(-1)
+        m = torch.cat([mag, mag[: _ARC - 1]], 0)             # (24,H,W) wrapped ring
+        pos = m > 0.0
+        s, a = m, pos
+        for w in (1, 2, 4):                                   # windows of 2, 4, 8
+            s, a = s[:-w] + s[w:], a[:-w] & a[w:]
+        s9, a9 = s[:16] + m[8:24], a[:16] & pos[8:24]
+        return torch.where(a9, s9, torch.zeros_like(s9)).amax(0)
 
     bright = arc(torch.clamp(diff - t, min=0.0))
     dark = arc(torch.clamp(-diff - t, min=0.0))
@@ -61,8 +64,7 @@ def _arc_score(diff: torch.Tensor, t: float) -> torch.Tensor:
 def fast_score_maps(img: torch.Tensor, thresholds) -> List[torch.Tensor]:
     """The score maps that open K1's plain version: (H,W) f32 ->
     per-threshold (H,W) score maps with a zeroed 3-px frame."""
-    ring = torch.stack([_shifted(img, dy, dx) for dy, dx in _CIRCLE], -1)
-    diff = ring - img[..., None]
+    diff = torch.stack([_shifted(img, dy, dx) for dy, dx in _CIRCLE]) - img
     h, w = img.shape
     yy = torch.arange(h, device=img.device)[:, None]
     xx = torch.arange(w, device=img.device)[None, :]

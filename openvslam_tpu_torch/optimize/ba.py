@@ -6,9 +6,12 @@ BA (``make_global_ba``, PCG over the reduced camera system).
 
 * The problem is a fixed-capacity SoA (cams C, landmarks L, observations O)
   with validity masks.
-* Jacobians are the analytic 2x6 (left increment [omega, upsilon]) and 2x3
-  blocks of the perspective mono edge; ``tests/test_torch_mapping.py``
-  holds them against ``torch.func.jacfwd`` of the residual.
+* Jacobians are the analytic Dx6 (left increment [omega, upsilon]) and Dx3
+  blocks of the perspective edge, mono (D = 2, (u, v) observations) or
+  stereo (D = 3, (u, v, u_right), u_right < 0 marking a mono observation
+  whose third row is masked); ``tests/test_torch_mapping.py`` and
+  ``tests/test_torch_stereo.py`` hold them against ``torch.func.jacfwd`` of
+  the residual.
 * Per-observation blocks are summed with ``index_add_`` (on CUDA in no
   fixed order, so card and CPU agree to rounding).
 * Landmark blocks are 3x3, eliminated in parallel (batched inverse); the
@@ -38,7 +41,7 @@ class BAProblem(NamedTuple):
     lm_valid: torch.Tensor   # (L,) bool
     obs_cam: torch.Tensor    # (O,) int camera index
     obs_lm: torch.Tensor     # (O,) int landmark index
-    obs_uv: torch.Tensor     # (O,2) observations (undistorted pixels)
+    obs_uv: torch.Tensor     # (O,2) mono or (O,3) stereo observations (undistorted pixels)
     obs_sigma2: torch.Tensor # (O,) variance (scale^2 of the octave)
     obs_mask: torch.Tensor   # (O,) bool
 
@@ -58,27 +61,38 @@ def _rho(c2, thr):
     return torch.where(c2 <= thr, c2, 2.0 * torch.sqrt(thr * torch.clamp(c2, min=0.0)) - thr)
 
 
-def mono_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
-    """Residuals obs - proj(T X) of every observation: (r (O,2), ok (O,),
-    camera-frame points (O,3))."""
+def reprojection_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
+    """Residuals obs - proj(T X) of every observation: (r (O,D), ok (O,),
+    camera-frame points (O,3)).  With D = 3 the third component is the
+    right-image u, zero where the observation's u_right < 0."""
     Tc = T_cw[obs_cam]
     xc = torch.einsum("oij,oj->oi", Tc[:, :3, :3], X[obs_lm]) + Tc[:, :3, 3]
-    uv, _, _ = cam.project(xc)
+    uv, z, _ = cam.project(xc)
     ok = xc[:, 2] > _EPS
-    return torch.where(ok[:, None], obs_uv - uv, torch.zeros_like(uv)), ok, xc
+    if obs_uv.shape[-1] == 3:
+        r = obs_uv - torch.cat([uv, cam.stereo_right_u(uv, z)[:, None]], -1)
+        r = torch.cat([r[:, :2], torch.where(obs_uv[:, 2:] < 0, 0.0, r[:, 2:])], -1)
+    else:
+        r = obs_uv - uv
+    return torch.where(ok[:, None], r, torch.zeros_like(r)), ok, xc
 
 
-def mono_residuals_and_jacobians(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
-    """Residuals (O,2), ok (O,), and their Jacobians with respect to the
-    left increment exp(xi) T of the observing camera (O,2,6) and to the
-    landmark position (O,2,3); zero where the point is behind the camera."""
-    r, ok, xc = mono_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv)
+def reprojection_residuals_and_jacobians(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
+    """Residuals (O,D), ok (O,), and their Jacobians with respect to the
+    left increment exp(xi) T of the observing camera (O,D,6) and to the
+    landmark position (O,D,3); zero where the point is behind the camera
+    (and, for D = 3, in the masked third row)."""
+    r, ok, xc = reprojection_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv)
     x, y, z = xc[:, 0], xc[:, 1], torch.where(ok, xc[:, 2], torch.ones_like(xc[:, 2]))
     zero = torch.zeros_like(z)
-    # d(uv)/d(xc); the residual's Jacobian is its negative
-    P = torch.stack([torch.stack([cam.fx / z, zero, -cam.fx * x / (z * z)], -1),
-                     torch.stack([zero, cam.fy / z, -cam.fy * y / (z * z)], -1)], -2)
-    P = P * ok[:, None, None]
+    # d(prediction)/d(xc); the residual's Jacobian is its negative
+    rows = [torch.stack([cam.fx / z, zero, -cam.fx * x / (z * z)], -1),
+            torch.stack([zero, cam.fy / z, -cam.fy * y / (z * z)], -1)]
+    if obs_uv.shape[-1] == 3:
+        # u_right = u - fxb / z
+        ur = torch.stack([cam.fx / z, zero, (cam.focal_x_baseline - cam.fx * x) / (z * z)], -1)
+        rows.append(ur * (obs_uv[:, 2] >= 0)[:, None])
+    P = torch.stack(rows, -2) * ok[:, None, None]
     # d(exp(xi) xc)/d(xi) at 0 = [-hat(xc) | I]
     Jc = torch.cat([P @ _hat(xc), -P], -1)
     Jl = -P @ T_cw[obs_cam][:, :3, :3]
@@ -92,15 +106,16 @@ def _hat(w):
                         torch.stack([-y, x, zero], -1)], -2)
 
 
-def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10):
-    """Dense-Schur local BA for a perspective mono camera.  Returns
+def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: bool = False):
+    """Dense-Schur local BA for a perspective camera, mono edges or (with
+    ``stereo``) stereo edges over (O,3) observations.  Returns
     fn(problem: BAProblem) -> BAResult on the problem's device, with the
     reference's two-phase schedule: ``first_iters`` LM iterations, outlier
     rejection (observations beyond the chi2 gate are dropped),
     ``second_iters`` more."""
     if cam.model_name != "perspective":
         raise NotImplementedError("only the perspective local BA is ported")
-    chi2_thr = R.CHI2_2D
+    chi2_thr = R.CHI2_3D if stereo else R.CHI2_2D
 
     def lm_phase(p: BAProblem, active: torch.Tensor, iters: int):
         dev, dt = p.T_cw.device, p.T_cw.dtype
@@ -116,7 +131,7 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10):
         pair = ol * C + oc
 
         def cost_of(T, X):
-            r, ok, _ = mono_residuals(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv)
             c2 = (r * r).sum(-1) * inv_s2
             w = (obs_ok_static & ok).to(dt)
             return (_rho(c2, chi2_thr) * w).sum(), c2, ok
@@ -129,7 +144,7 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10):
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
         cost = torch.zeros((), dtype=dt, device=dev)
         for _ in range(iters):
-            r, ok, Jc, Jl = mono_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, Jc, Jl = reprojection_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
             c2 = (r * r).sum(-1) * inv_s2
             w = R.huber_weight(c2, chi2_thr) * inv_s2 * (obs_ok_static & ok).to(dt)
             # fixed cameras keep their Jacobians out of the system (they
@@ -189,9 +204,10 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10):
 # Global BA: matrix-free Schur complement + PCG
 # ---------------------------------------------------------------------------
 
-def make_global_ba(cam, iters: int = 10, cg_iters: int = 40):
+def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = False):
     """Matrix-free LM for full-map BA over an unbounded camera count
-    (counterpart of ``make_global_ba``; ref ``optimize/global_bundle_adjuster``).
+    (counterpart of ``make_global_ba``; ref ``optimize/global_bundle_adjuster``),
+    mono edges or (with ``stereo``) stereo edges over (O,3) observations.
 
     Same problem struct as local BA; the reduced camera system is never
     formed: each PCG step applies S x = Hcc x - W (Hll^-1 (W^T x)) with
@@ -201,7 +217,7 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40):
     nothing is read back to the host inside the solve."""
     if cam.model_name != "perspective":
         raise NotImplementedError("only the perspective global BA is ported")
-    chi2_thr = R.CHI2_2D
+    chi2_thr = R.CHI2_3D if stereo else R.CHI2_2D
 
     def optimize(p: BAProblem) -> BAResult:
         dev, dt = p.T_cw.device, p.T_cw.dtype
@@ -215,7 +231,7 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40):
         eyel = torch.eye(3, dtype=dt, device=dev)
 
         def cost_of(T, X):
-            r, ok, _ = mono_residuals(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv)
             c2 = (r * r).sum(-1) * inv_s2
             w = (obs_ok_static & ok).to(dt)
             return (_rho(c2, chi2_thr) * w).sum(), c2, ok
@@ -228,7 +244,7 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40):
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
         cost = torch.zeros((), dtype=dt, device=dev)
         for _ in range(iters):
-            r, ok, Jc, Jl = mono_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, Jc, Jl = reprojection_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
             c2 = (r * r).sum(-1) * inv_s2
             w = R.huber_weight(c2, chi2_thr) * inv_s2 * (obs_ok_static & ok).to(dt)
             Jc = Jc * cam_free[oc][:, None, None]

@@ -1,8 +1,13 @@
-"""System facade, mono (counterpart of ``openvslam_tpu/system.py``; ref
+"""System facade (counterpart of ``openvslam_tpu/system.py``; ref
 ``system.h/.cc``): owns the front end, the map database and the tracking,
 mapping and global optimization modules, and exposes startup, shutdown,
-``feed_monocular_frame``, the pipelined ``feed_sequence``, the mapping and
-loop-detector switches, pause/resume, reset and the trajectory accessors.
+``feed_monocular_frame``, ``feed_stereo_frame``, ``feed_RGBD_frame``, the
+pipelined ``feed_sequence``, the mapping and loop-detector switches,
+pause/resume, reset and the trajectory accessors.  A perspective camera of
+any setup runs: monocular, stereo (a rectified pair; per-keypoint depth by
+the dense SAD match against the right image) or RGB-D (a registered depth
+map, scaled by ``depthmap_factor``).  Stereo and RGB-D maps are metric: the
+map starts from one frame's depths and loop closure locks the Sim3 scale.
 
 Tracking runs in the caller.  The common TRACKING path is one fused
 ``TrackStep`` per frame (kernels K1, K2, K3 on the card); initialization,
@@ -18,7 +23,7 @@ correction on a thread of its own; each runs on a CUDA stream of its own,
 and they share the map under one lock (``map_lock``).  The feed paces itself
 to the mapper (``_pace_mapper``) so its queue stays short.
 
-Not ported: stereo and RGB-D, map IO, publishers and autosave.
+Not ported: other camera models, map IO, publishers and autosave.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from .models.track_step import TrackStep
 from .module.global_optimization_module import GlobalOptimizationModule
 from .module.mapping_module import MappingModule
 from .module.tracking_module import TrackerState, TrackingModule
+from .ops.stereo import depth_at_keypoints, stereo_match_dense
 from .utils.log import get_logger
 from .utils.threads import WorkerFaults, on_stream, worker_stream
 
@@ -67,8 +73,6 @@ class System:
         ``async_mapping`` runs mapping, the loop pipeline and the global BA
         on worker threads (see the module docstring)."""
         self.device = resolve_device(device)
-        if cfg.camera.setup != SetupType.MONOCULAR:
-            raise NotImplementedError("only the monocular System is ported")
         self.cfg = cfg
         self.cam = cfg.camera
         f = cfg.feature
@@ -82,9 +86,12 @@ class System:
             cfg.raw.get("Camera", {}).get("name", "default"), camera_to_config(self.cam),
             make_default=True)
         # the BoW stack is always built (relocalization needs it); loop
-        # detection stays gated by cfg.loop.enabled inside the module
-        self.global_optimizer = GlobalOptimizationModule(cfg, self.cam, self.map_db, vocab_path,
-                                                         fix_scale=False, device=self.device)
+        # detection stays gated by cfg.loop.enabled inside the module.  A
+        # stereo/RGB-D map is metric: loop closure locks the Sim3 scale (ref
+        # sim3_solver fix_scale for non-monocular setups)
+        self.global_optimizer = GlobalOptimizationModule(
+            cfg, self.cam, self.map_db, vocab_path,
+            fix_scale=self.cam.setup != SetupType.MONOCULAR, device=self.device)
         self.mapper = MappingModule(cfg, self.cam, self.map_db,
                                     global_optimizer=self.global_optimizer, device=self.device)
         self.map_lock = threading.RLock()
@@ -114,8 +121,11 @@ class System:
                 m[int(y0 * self.cam.rows):int(y1 * self.cam.rows),
                   int(x0 * self.cam.cols):int(x1 * self.cam.cols)] = 0.0
             self._static_mask = torch.from_numpy(m).to(self.device)
+        mode = {SetupType.MONOCULAR: "mono", SetupType.STEREO: "stereo",
+                SetupType.RGBD: "rgbd"}[self.cam.setup]
         self._track_step = TrackStep(self.cam, self.frontend,
-                                     lm_capacity=TrackingModule.LOCAL_LM_CAP, device=self.device)
+                                     lm_capacity=TrackingModule.LOCAL_LM_CAP, mode=mode,
+                                     device=self.device)
         self.frame_id = 0
         self._fused_frames = 0
         self.trajectory: List[tuple] = []   # (timestamp, pose_cw or None)
@@ -132,7 +142,7 @@ class System:
 
     # ------------------------------------------------------------------
     def startup(self):
-        _log.info("system startup (monocular, %dx%d, %s mapping, %s)", self.cam.cols,
+        _log.info("system startup (%s, %dx%d, %s mapping, %s)", self.cam.setup.value, self.cam.cols,
                   self.cam.rows, "async" if self._async else "sync", self.device)
 
     def shutdown(self):
@@ -223,13 +233,19 @@ class System:
                 and tr.last_frame.pose_cw is not None)
 
     def feed_kind(self) -> str:
-        """Sequence kind for this camera setup, as ``feed_sequence`` takes it
-        (the port runs monocular cameras only)."""
-        return "monocular"
+        """Sequence kind for this camera setup ('monocular'|'stereo'|'rgbd'),
+        as ``feed_sequence`` takes it."""
+        return {SetupType.STEREO: "stereo", SetupType.RGBD: "rgbd"}.get(self.cam.setup,
+                                                                        "monocular")
 
     def feed_frame(self, *args, **kwargs):
-        """Setup-dispatched per-frame feed (``feed_monocular_frame`` here)."""
-        return self.feed_monocular_frame(*args, **kwargs)
+        """Setup-dispatched per-frame feed: ``feed_monocular_frame``,
+        ``feed_stereo_frame`` or ``feed_RGBD_frame``."""
+        return self._feed_of(self.feed_kind())(*args, **kwargs)
+
+    def _feed_of(self, kind: str):
+        return {"monocular": self.feed_monocular_frame, "stereo": self.feed_stereo_frame,
+                "rgbd": self.feed_RGBD_frame}[kind]
 
     def _pace_mapper(self):
         """Backpressure (async mapping): before any lock is taken, block the
@@ -260,18 +276,41 @@ class System:
                              mask: Optional[np.ndarray] = None):
         """image: (rows, cols) uint8 grayscale or (rows, cols, 3) color; mask:
         optional (rows, cols), > 0 = usable.  Returns pose_cw (4,4) or None."""
+        return self._feed(self._to_gray(image), None, timestamp, mask)
+
+    def feed_stereo_frame(self, left: np.ndarray, right: np.ndarray, timestamp: float,
+                          mask: Optional[np.ndarray] = None):
+        """A rectified stereo pair -> pose_cw or None (ref
+        system::feed_stereo_frame).  The front end runs on the left image;
+        each left keypoint's right u and depth come from the dense SAD match
+        against the right image."""
+        return self._feed(self._to_gray(left), self._to_gray(right), timestamp, mask)
+
+    def feed_RGBD_frame(self, rgb: np.ndarray, depthmap: np.ndarray, timestamp: float,
+                        mask: Optional[np.ndarray] = None):
+        """An image and its registered depth map (stored units; metres =
+        value / ``depthmap_factor``) -> pose_cw or None (ref
+        system::feed_RGBD_frame).  Depth is sampled at each keypoint, with a
+        virtual right u from ``focal_x_baseline``."""
+        return self._feed(self._to_gray(rgb), self._metric_depth(depthmap), timestamp, mask)
+
+    def _metric_depth(self, depthmap: np.ndarray) -> np.ndarray:
+        return depthmap.astype(np.float32) / max(self.cfg.depthmap_factor, 1e-9)
+
+    def _feed(self, img: np.ndarray, aux, timestamp: float, mask):
+        """Track one frame of any setup: ``aux`` is None (monocular), the
+        right image (stereo) or the metric depth map (RGB-D)."""
         self._pace_mapper()
-        img = self._to_gray(image)
         mask_t = self._mask_tensor(mask)
         tr = self.tracker
         t0 = time.perf_counter()
         if self._use_fused():
             with self.map_lock:
-                pose, _ = tr.track_fused(img, self.frame_id, timestamp, self._track_step, mask_t)
+                pose, _ = tr.track_fused(img, self.frame_id, timestamp, self._track_step, mask_t,
+                                         aux)
             self._fused_frames += 1
         else:
-            kp = self.frontend.extract(torch.from_numpy(img).to(self.device), mask_t)
-            frame = Frame.from_keypoints(self.frame_id, timestamp, kp, self.cam)
+            frame = self._classic_frame(img, aux, timestamp, mask_t)
             with self.map_lock:
                 pose = tr.track(frame)
         self.frame_id += 1
@@ -279,13 +318,31 @@ class System:
         self._append_trajectory(timestamp, pose)
         return pose
 
+    def _classic_frame(self, img: np.ndarray, aux, timestamp: float, mask_t) -> Frame:
+        """The frame of the classic ladder: keypoints of ``img`` and, for a
+        stereo or RGB-D camera, their right u and depth from ``aux``."""
+        img_t = torch.from_numpy(img).to(self.device)
+        kp = self.frontend.extract(img_t, mask_t)
+        x_right = depth = None
+        if aux is not None:
+            aux_t = torch.from_numpy(aux).to(self.device)
+            fxb = self.cam.focal_x_baseline
+            x_right, depth = (
+                stereo_match_dense(img_t, aux_t, kp.xy, kp.valid, fxb)
+                if self.cam.setup == SetupType.STEREO else
+                depth_at_keypoints(aux_t, kp.xy, self.cam.undistort_keypoints(kp.xy), kp.valid, fxb))
+            x_right, depth = x_right.cpu().numpy(), depth.cpu().numpy()
+        return Frame.from_keypoints(self.frame_id, timestamp, kp, self.cam, x_right=x_right,
+                                    depth=depth)
+
     # ------------------------------------------------------------------
     # pipelined sequence feed
     # ------------------------------------------------------------------
     def feed_sequence(self, items, kind: str = "monocular", depth: int = 1):
-        """Software-pipelined sequence feed.  ``items`` yields monocular
-        ``(image, ts[, mask])`` tuples; this generator yields ``(timestamp,
-        pose_cw or None)`` in order.
+        """Software-pipelined sequence feed.  ``items`` yields per-frame
+        tuples, monocular ``(image, ts[, mask])``, stereo ``(left, right,
+        ts[, mask])`` or RGB-D ``(rgb, depthmap, ts[, mask])``, and this
+        generator yields ``(timestamp, pose_cw or None)`` in order.
 
         Up to ``depth`` fused steps stay in flight: frame N+depth is
         dispatched before frame N is finished, so frame N's host
@@ -318,8 +375,7 @@ class System:
         kind = kind.lower()
         if kind not in ("monocular", "stereo", "rgbd"):
             raise ValueError(f"unknown sequence kind: {kind}")
-        if kind != "monocular":
-            raise NotImplementedError("only the monocular feed is ported")
+        feed_classic = self._feed_of(kind)
         depth = max(1, min(int(depth), 31))   # the tracker's pose-history bound
         tr = self.tracker
         inflight = collections.deque()        # dispatched, not finished
@@ -342,7 +398,7 @@ class System:
             inflight.clear()
             for fl in replay:
                 self.frame_id = fl["fid"]
-                yield fl["ts"], self.feed_monocular_frame(*fl["item"])
+                yield fl["ts"], feed_classic(*fl["item"])
 
         def _drain(n_keep):
             while len(inflight) > n_keep:
@@ -355,13 +411,17 @@ class System:
         for item in items:
             self._pace_mapper()      # backpressure before any lock is taken
             tp = time.perf_counter()
-            img, ts = self._to_gray(item[0]), item[1]
-            mask_t = self._mask_tensor(item[2] if len(item) > 2 else None)
+            n_img = 1 if kind == "monocular" else 2
+            img, ts = self._to_gray(item[0]), item[n_img]
+            aux = (None if kind == "monocular" else self._to_gray(item[1]) if kind == "stereo"
+                   else self._metric_depth(item[1]))
+            mask_t = self._mask_tensor(item[n_img + 1] if len(item) > n_img + 1 else None)
             self.pipe_stats["prep_s"].append(time.perf_counter() - tp)
             if self._use_fused():
                 td = time.perf_counter()
                 with self.map_lock:
-                    h = tr.track_fused_dispatch(img, self.frame_id, ts, self._track_step, mask_t)
+                    h = tr.track_fused_dispatch(img, self.frame_id, ts, self._track_step, mask_t,
+                                                aux)
                 self.pipe_stats["dispatch_s"].append(time.perf_counter() - td)
                 inflight.append({"h": h, "ts": ts, "fid": self.frame_id, "item": item})
                 self.frame_id += 1
@@ -370,7 +430,7 @@ class System:
                 # leave the common path: drain the pipeline, then feed this
                 # frame through the classic ladder
                 yield from _drain(0)
-                yield ts, self.feed_monocular_frame(*item)
+                yield ts, feed_classic(*item)
         yield from _drain(0)
 
     def _append_trajectory(self, ts: float, pose):
@@ -551,6 +611,9 @@ class _AsyncMapperProxy:
 
     def after_initialization(self, kf1, kf2):
         return self.mapper.after_initialization(kf1, kf2)
+
+    def after_stereo_initialization(self, kf):
+        return self.mapper.after_stereo_initialization(kf)
 
     @property
     def idle(self) -> bool:

@@ -2,13 +2,15 @@
 tests/test_pipeline_feed.py: depth 2 (a three-frame-stale map, lead-3
 prediction) keeps tracking and ATE(sim3) in class, and blank frames
 mid-sequence force the Lost path, after which the feed drains, takes the
-classic ladder and keeps yielding in order.  Also the sequence kinds the
-port refuses.
+classic ladder and keeps yielding in order.  Also the sequence kinds:
+an empty stereo or RGB-D sequence yields nothing on a System of that
+setup, and an unknown kind raises.
 """
 import numpy as np
 import pytest
 import torch
 
+from openvslam_tpu_torch.config import Config
 from openvslam_tpu_torch.system import System
 from test_torch_async_pipeline import make_config, render_sequence, sim3_ate
 
@@ -59,8 +61,14 @@ def test_pipeline_survives_lost_and_reinit():
 
 
 def test_refuses_other_sequence_kinds():
+    for kind, setup in (("stereo", "stereo"), ("rgbd", "rgbd")):
+        cfg = make_config()
+        cfg = Config.from_dict(dict(cfg.raw, Camera=dict(cfg.raw["Camera"], setup=setup,
+                                                         focal_x_baseline=35.0)))
+        s = System(cfg, device="cpu")
+        assert s.feed_kind() == kind
+        assert list(s.feed_sequence(iter([]), kind=kind)) == []
+        assert s.frame_id == 0 and not s.trajectory
     s = System.__new__(System)
-    for kind, err in (("stereo", NotImplementedError), ("rgbd", NotImplementedError),
-                      ("thermal", ValueError)):
-        with pytest.raises(err):
-            next(s.feed_sequence(iter([]), kind=kind))
+    with pytest.raises(ValueError):
+        next(s.feed_sequence(iter([]), kind="thermal"))

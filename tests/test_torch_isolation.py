@@ -9,8 +9,9 @@
   launch for them; other devices raise;
 * the package carries its own descriptor patterns and vocabularies, and a
   missing one raises;
-* the mono System runs with loop detection on (the config's default) and
-  refuses what is not ported (stereo) instead of ignoring it;
+* the System runs with loop detection on (the config's default), takes
+  monocular, stereo and RGB-D perspective cameras, and refuses what is not
+  ported (the fisheye and equirectangular cameras) instead of ignoring it;
 * no module names a path outside the package (its native source and build
   live inside it), and a failed native build raises instead of falling
   back to Python;
@@ -35,7 +36,7 @@ from openvslam_tpu_torch.models.frontend import OrbFrontend
 from openvslam_tpu_torch.models.track_step import TrackStep
 from openvslam_tpu_torch.ops import fast, match, orb, pose_lm
 from openvslam_tpu_torch.system import System
-from openvslam_tpu_torch.utils import native
+from openvslam_tpu_torch.utils import native, stereo_rectifier
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(openvslam_tpu_torch.__file__))
@@ -90,8 +91,14 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         OrbFrontend(48, 64, max_keypts=64, num_levels=2)
     fe = OrbFrontend(48, 64, max_keypts=64, num_levels=2, device="cpu")
+    for mode in ("mono", "stereo", "rgbd"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TrackStep(cam, fe, lm_capacity=16, mode=mode)
+    raw = {"StereoRectifier": {"K_left": [100, 0, 32, 0, 100, 24, 0, 0, 1], "D_left": [0] * 5,
+                               "K_right": [100, 0, 32, 0, 100, 24, 0, 0, 1], "D_right": [0] * 5}}
     with pytest.raises(RuntimeError, match="CUDA"):
-        TrackStep(cam, fe, lm_capacity=16)
+        stereo_rectifier.StereoRectifier(cam, raw)
+    assert stereo_rectifier.StereoRectifier(cam, raw, device="cpu").map_l.device.type == "cpu"
 
 
 def test_wrappers_dispatch_by_device(rng):
@@ -151,13 +158,16 @@ def test_system_refuses_missing_cuda_and_unported_features(monkeypatch):
     s.startup()
     assert s.feed_monocular_frame(np.zeros((48, 64), np.uint8), 0.0) is None
     s.shutdown()
-    cam = dict(_small_config()["Camera"], setup="stereo", focal_x_baseline=10.0)
-    with pytest.raises(NotImplementedError, match="monocular"):
-        System(Config.from_dict(_small_config(Camera=cam)), device="cpu")
+    for model in ("fisheye", "equirectangular"):
+        cam = dict(_small_config()["Camera"], model=model)
+        with pytest.raises(NotImplementedError, match=model):
+            System(Config.from_dict(_small_config(Camera=cam)), device="cpu")
     assert System(Config.from_dict(_small_config()), device="cpu").device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        System(Config.from_dict(_small_config()))
+    for setup in ("monocular", "stereo", "rgbd"):
+        cam = dict(_small_config()["Camera"], setup=setup, focal_x_baseline=10.0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            System(Config.from_dict(_small_config(Camera=cam)))
 
 
 def test_port_names_no_path_outside_its_package():

@@ -291,8 +291,8 @@ def test_global_ba_matches_jax(rng):
     assert abs(float(res.cost) - float(ref.cost)) <= 1e-4 * max(abs(float(ref.cost)), 1e-12)
     n = int(p.obs_mask.sum())
     oc, ol, uv = p.obs_cam[:n].long(), p.obs_lm[:n].long(), p.obs_uv[:n]
-    pred = uv - BA.mono_residuals(cam, res.T_cw, res.X, oc, ol, uv)[0]
-    pred_j = uv - BA.mono_residuals(cam, _t(ref.T_cw), _t(ref.X), oc, ol, uv)[0]
+    pred = uv - BA.reprojection_residuals(cam, res.T_cw, res.X, oc, ol, uv)[0]
+    pred_j = uv - BA.reprojection_residuals(cam, _t(ref.T_cw), _t(ref.X), oc, ol, uv)[0]
     inl = res.obs_inlier[:n]
     assert float((pred - pred_j).norm(dim=-1)[inl].max()) <= 0.05
     np.testing.assert_allclose(res.T_cw.numpy(), ref.T_cw, atol=1e-3)
@@ -321,7 +321,7 @@ def _near_threshold_problem(cam, p, ref):
 
     n = int(p.obs_mask.sum())
     j = int(torch.nonzero(ref.obs_inlier[:n])[0, 0])
-    r = BA.mono_residuals(cam, ref.T_cw, ref.X, p.obs_cam[:n].long(), p.obs_lm[:n].long(),
+    r = BA.reprojection_residuals(cam, ref.T_cw, ref.X, p.obs_cam[:n].long(), p.obs_lm[:n].long(),
                           p.obs_uv[:n])[0][j]
     target = torch.tensor([np.sqrt(0.99 * CHI2_2D * float(p.obs_sigma2[j])), 0.0])
     uv = p.obs_uv.clone()

@@ -102,7 +102,7 @@ def test_analytic_jacobians_match_autodiff(rng):
     p = BA.BAProblem(*(_t(np.array(a)) for a in prob))
     n = int(p.obs_mask.sum())
     oc, ol, uv = p.obs_cam[:n].long(), p.obs_lm[:n].long(), p.obs_uv[:n]
-    r, ok, Jc, Jl = BA.mono_residuals_and_jacobians(cam, p.T_cw, p.X, oc, ol, uv)
+    r, ok, Jc, Jl = BA.reprojection_residuals_and_jacobians(cam, p.T_cw, p.X, oc, ol, uv)
     assert ok.all()
 
     def resid(xi, dX, T, X, o_uv):
