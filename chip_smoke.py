@@ -63,14 +63,30 @@ Phases:
      test_rgbd_pipelined and the kernels held at its shapes;
   7c. the stereo loop at tests/test_stereo_loop.py's own point (320x240):
      a loop closed with the Sim3 scale locked at 1 and the keyframe
-     ATE(se3) within 1.25 times the JAX System's reading there.
+     ATE(se3) within 1.25 times the JAX System's reading there;
+  8. the fisheye System at full width: TUM VI's 512x512 equidistant cam0
+     (1000 keypoints, 8 levels, loop detection on) over the first 120
+     frames of phase 6's room lap, rendered on the card: the bearing-E
+     bootstrap, the fused step with K3 on undistorted pixels, the pinhole
+     BA edge; the first bootstrap attempt, the last K3 launch and the last
+     local BA replayed on the CPU; gated on a pose by frame 15, tracked
+     share >= 0.90 and >= the JAX System's - 0.05, ATE(sim3) <= 1.25 x the
+     JAX System's reading at this point;
+  8b. the equirectangular System at full width: the RICOH THETA S camera of
+     OpenVSLAM's equirectangular tutorial (1920x960, 2000 keypoints, 8
+     levels) on the same frames, where landmarks behind the camera cross
+     the seam: the plain lon/lat pose LM (no K3 on this path, as in the
+     JAX package), the equirectangular BA edge; the first bootstrap
+     attempt, the first and last LM and one local BA replayed on the CPU,
+     a profiler window over 10 frames; phase 8's gates.
 Kernel launch counts are reset just before each main-path run and read just
 after it.  Any mismatch, any kernel that a main-path run did not launch, or
 any exception exits non-zero.  The last line is a JSON object with the
 device; the line before it is the card's name and power limit; the line
 before that lists every kernel with its numbers and its launches in the
 main-path runs (FrameStep, TrackStep, System, loop-and-relocalization,
-their async runs, stereo, stereo async, RGB-D and the stereo loop).
+their async runs, stereo, stereo async, RGB-D, the stereo loop, fisheye
+and equirectangular).
 """
 from __future__ import annotations
 
@@ -117,6 +133,27 @@ STEREO_LOOP_POINT = dict(rows=240, cols=320, keypoints=500, levels=3, frames=200
 STEREO_LOOP_REF_KF_ATE_M = 0.3622
 # Phases 7 and 7b: frames along tests/test_stereo_rgbd_e2e.py's wall
 WALL_FRAMES = 120
+# Phases 8 and 8b: the fisheye and the equirectangular camera on phase 6's
+# octagon room over the first CAMERA_FRAMES frames of its 200-frame lap,
+# synchronous mapping, loop detection on (``fisheye_config_dict``,
+# ``equirect_config_dict``, ``camera_scene``).  tools/camera_points_jax.py
+# drives the JAX System through these same definitions.
+CAMERA_FRAMES = 120
+# The JAX System's readings there (tools/camera_points_jax.py 8 and 8b, on
+# the CPU): the tracked share after the first pose and the ATE(sim3) of the
+# tracked trajectory.  The port is held to the share - 0.05 (and 0.90) and
+# to LOOP_ATE_MARGIN times the ATE.  At phase 8's point the ATE depends on
+# which RANSAC draws bootstrap the map (JAX read 0.0461-0.1073 m, the port
+# on the CPU 0.0406-0.0790 m, over four tracker seeds), so both packages
+# run it with the tracker seeded four ways (the JAX tool's ``--key``, the
+# port's ``CAMERA_SEEDS``): the reading is the median of the four ATEs and
+# the lowest tracked share.
+CAMERA_SEEDS = (42, 1, 2, 3)
+_FISHEYE_REF_ATES = (0.04614531987502649, 0.06816313912525392, 0.08482819435493366,
+                     0.10729472880512635)
+FISHEYE_REF = dict(tracked=1.0, ate_sim3_m=float(np.median(_FISHEYE_REF_ATES)),
+                   ate_sim3_by_seed=_FISHEYE_REF_ATES)
+EQUIRECT_REF = dict(tracked=1.0, ate_sim3_m=0.06897646688797089)
 
 
 def log(msg: str) -> None:
@@ -680,15 +717,22 @@ class LapRender:
         return self.scene.render(self.cam, self.gt[i])
 
 
-def loop_frames(cam, frames: int = LOOP_POINT["frames"]):
+def loop_frames(cam, frames: int = LOOP_POINT["frames"], dev=None):
     """A rendered lap (phase 6's, or the same path over ``frames`` frames):
-    (frames, the view of the frame 20 degrees in, ground truth)."""
+    (frames, the view of the frame 20 degrees in, ground truth).  With
+    ``dev`` the frames are rendered there (``camera_frames``: numpy's frame
+    0 held within 1 gray level), else in numpy on the host."""
     lap = LapRender(cam, frames)
     t = time.perf_counter()
-    imgs = [lap[i] for i in range(frames)]
+    if dev is None:
+        imgs = [lap[i] for i in range(frames)]
+    else:
+        imgs, render = camera_frames(dev, cam, lap.scene, lap.gt)
+        if not render["frame0_within_1_gray"] >= 0.999:
+            fail(f"Loop: the card's rendering differs from numpy's: {render}")
     log(f"Loop: {frames} lap frames rendered in {time.perf_counter() - t:.1f}s "
-        f"({cam.cols}x{cam.rows})")
-    return imgs, lap[revisit_index(frames)], lap.gt
+        f"({cam.cols}x{cam.rows}{'' if dev is None else ' on ' + str(dev)})")
+    return imgs, imgs[revisit_index(frames)], lap.gt
 
 
 def revisit_index(frames: int) -> int:
@@ -1225,6 +1269,38 @@ def tum_config_dict() -> dict:
             "Feature": {"max_num_keypts": 1000, "scale_factor": 1.2, "num_levels": 8}}
 
 
+def fisheye_config_dict() -> dict:
+    """Phase 8's configuration: TUM VI's 512x512 equidistant cam0 with its
+    published calibration (as in stella_vslam's example/tum_vi config; 20
+    fps), 1000 keypoints, 8 levels, scale 1.2, loop detection on."""
+    return {"Camera": {"name": "TUM VI fisheye cam0", "setup": "monocular", "model": "fisheye",
+                       "fx": 190.978, "fy": 190.973, "cx": 254.932, "cy": 256.897,
+                       "k1": 0.00348239, "k2": 0.000715035, "k3": -0.00205324,
+                       "k4": 0.000202937, "cols": 512, "rows": 512, "fps": 20.0},
+            "Feature": {"max_num_keypts": 1000, "num_levels": 8, "scale_factor": 1.2},
+            "LoopDetector": {"enabled": True}}
+
+
+def equirect_config_dict() -> dict:
+    """Phase 8b's configuration: the RICOH THETA S camera of OpenVSLAM's
+    documented equirectangular tutorial (1920x960, 30 fps; 2000 keypoints,
+    8 levels, scale 1.2; its mask rectangles hide the photographer, whom
+    the rendered room does not have), loop detection on."""
+    return {"Camera": {"name": "RICOH THETA S 960", "setup": "monocular",
+                       "model": "equirectangular", "cols": 1920, "rows": 960, "fps": 30.0},
+            "Feature": {"max_num_keypts": 2000, "num_levels": 8, "scale_factor": 1.2,
+                        "ini_fast_threshold": 20, "min_fast_threshold": 7},
+            "LoopDetector": {"enabled": True}}
+
+
+def camera_scene(synthetic, cam):
+    """Phases 8 and 8b's (scene, ground-truth poses) from a
+    ``utils.synthetic`` module: phase 6's room and the first
+    ``CAMERA_FRAMES`` frames of its lap."""
+    scene, gt = loop_scene(synthetic, cam)
+    return scene, gt[:CAMERA_FRAMES]
+
+
 def wall_scene(synthetic, cam, step_m: float, n: int = WALL_FRAMES):
     """tests/test_stereo_rgbd_e2e.py's textured wall (seed 7, the plane z = 7
     m, stretched to cover the path) and its sideways path, here ``n``
@@ -1282,12 +1358,12 @@ def se3_ate(poses, gt, evaluate) -> float:
 class KernelCapture:
     """While a main-path run drives them, keep the operands of the last K1
     launch, of the last K2 launch over the local-map table and of the last
-    K3 launch over (u, v, u_right) observations, by wrapping the functions
-    the package calls; it launches nothing itself.  ``check(dev)`` then
-    holds each captured launch against its plain version (``check_k1``,
-    ``check_k2``, ``check_k3``)."""
+    K3 launch over observations of ``k3_cols`` columns ((u, v, u_right) by
+    default), by wrapping the functions the package calls; it launches
+    nothing itself.  ``check(tag)`` then holds each captured launch against
+    its plain version (``check_k1``, ``check_k2``, ``check_k3``)."""
 
-    def __init__(self, lm_capacity: int):
+    def __init__(self, lm_capacity: int, k3_cols: int = 3):
         from openvslam_tpu_torch.ops import fast, match as M
         from openvslam_tpu_torch.optimize import pose_optimizer as PO
 
@@ -1308,7 +1384,7 @@ class KernelCapture:
             return f2(*a, **kw)
 
         def k3(*a, **kw):
-            if a[2].shape[1] == 3:
+            if a[2].shape[1] == k3_cols:
                 self.k3 = (a, kw)
             return f3(*a, **kw)
 
@@ -1319,10 +1395,12 @@ class KernelCapture:
         for (m, n), f in zip(self._wrapped, self._orig):
             setattr(m, n, f)
 
-    def check(self, tag: str) -> dict:
+    def check(self, tag: str, with_k3: bool = True) -> dict:
         """{kernel key: its row at the captured shape}; fails on a kernel
-        that was not captured or disagrees with its plain version."""
-        if self.k1 is None or self.k2 is None or self.k3 is None:
+        that was not captured or disagrees with its plain version.  Without
+        ``with_k3`` (a path that has no K3) K3 is neither expected nor
+        checked."""
+        if self.k1 is None or self.k2 is None or (with_k3 and self.k3 is None):
             fail(f"{tag}: a kernel of the path was not captured")
         levels, thr, budgets, masks = self.k1
         r1 = check_k1(levels, budgets, masks=(masks,), thr=thr)
@@ -1330,11 +1408,11 @@ class KernelCapture:
         kw2 = dict(kw2)
         image = kw2.pop("image_size")
         r2 = check_k2(a2, kw2, image)
-        a3, kw3 = self.k3
-        r3 = check_k3(a3, kw3)
         rows = {"fast_score_maps": dict(r1, shape=f"{tag} K1 " + r1["shape"]),
-                "projection_match": dict(r2, shape=f"{tag} K2 " + r2["shape"]),
-                "pose_lm": dict(r3, shape=f"{tag} K3 " + r3["shape"])}
+                "projection_match": dict(r2, shape=f"{tag} K2 " + r2["shape"])}
+        if with_k3:
+            r3 = check_k3(*self.k3)
+            rows["pose_lm"] = dict(r3, shape=f"{tag} K3 " + r3["shape"])
         for r in rows.values():
             log(f"{r['shape']}: max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms through the "
                 f"wrapper, {r['ms_kernel_only']:.4f} ms kernel alone (plain {r['plain_ms']:.3f} "
@@ -1343,7 +1421,7 @@ class KernelCapture:
             fail(f"{tag}: K1 differs from its plain version")
         if not r2["exact"]:
             fail(f"{tag}: K2 differs from its plain version")
-        if not r3["ok"]:
+        if with_k3 and not rows["pose_lm"]["ok"]:
             fail(f"{tag}: K3 differs from its plain version beyond T atol 1e-3 / 0.99 inliers")
         return rows
 
@@ -1608,7 +1686,8 @@ def stereo_loop_phase(dev):
 
     def feed(i):
         t = time.perf_counter()
-        pair = scene.render(cam, gt[i]), scene.render(cam, shift @ gt[i])
+        pair = tuple(scene.render_torch(cam, T, dev).cpu().numpy()
+                     for T in (gt[i], shift @ gt[i]))
         render[0] += time.perf_counter() - t
         return s.feed_stereo_frame(*pair, i / cam.fps)
 
@@ -1647,6 +1726,276 @@ def stereo_loop_phase(dev):
     if min(counts.values()) == 0:
         fail(f"Stereo loop did not launch every kernel: {counts}")
     return out, counts
+
+
+def camera_frames(dev, cam, scene, gt):
+    """Phases 8 and 8b's frames, rendered on the card with
+    ``RoomSceneRenderer.render_torch`` (a 1920x960 frame takes seconds in
+    numpy); frame 0 also in numpy on the host, as tools/camera_points_jax.py
+    renders for the JAX System, and the two held within 1 gray level on
+    99.9 % of the pixels.  Returns (frames, summary)."""
+    import torch
+
+    t = time.perf_counter()
+    imgs = [scene.render_torch(cam, T, dev).cpu().numpy() for T in gt]
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host0 = scene.render(cam, gt[0])
+    host_s = time.perf_counter() - t
+    diff = np.abs(host0.astype(np.int64) - imgs[0].astype(np.int64))
+    within1 = float((diff <= 1).mean())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return imgs, dict(render_card_s=card_s, render_host_frame0_s=host_s,
+                      frame0_within_1_gray=within1, frame0_max_gray_diff=int(diff.max()))
+
+
+def camera_phase(dev, point: str):
+    """Phase 8 (``point`` "8": TUM VI's fisheye, ``fisheye_config_dict``)
+    or 8b ("8b": the THETA S equirectangular camera,
+    ``equirect_config_dict``): the System on ``camera_scene``'s 120 frames
+    (rendered on the card, ``camera_frames``), synchronous mapping, frame by
+    frame.  Captured during the run and replayed on the CPU: the first
+    bootstrap attempt (the bearing-E path; matches, masks and the support
+    counts as a set exact, T21 within 1e-4), the fused step's pose LM (8:
+    its last K3 launch, T within 1e-3 and 99 % of the inlier flags as K3 is
+    held; 8b: the first and last equirectangular LM, inliers equal and |dT|
+    <= 1e-4) and a local BA (8: the last, 8b: the first;
+    ``ba_agreement_any_order``); K1 and K2 (and K3 in 8) held against their
+    plain versions at the run's shapes.  8b traces frames
+    60-69 with the profiler and times the equirectangular LM alone.  Phase
+    8 then runs the System again with the tracker's bootstrap generator
+    seeded with each further entry of ``CAMERA_SEEDS`` (no capture, no
+    count).  Gates: a pose by frame 15 and tracked share after it >= 0.90
+    and >= the JAX System's - 0.05 in every run, ATE(sim3) of the tracked
+    trajectory (8: the median over the runs) <= 1.25 x the JAX System's
+    (``FISHEYE_REF``, ``EQUIRECT_REF``), the card's frame 0 within 1 gray
+    level of numpy's on 99.9 % of pixels, every replay agreeing, and
+    every kernel of the path launched (K3 exempt in 8b: the JAX package runs
+    the equirectangular LM outside its Pallas kernel too).  Loops are
+    recorded, not gated.  Returns (summary dict, launch counts, kernel
+    rows)."""
+    import torch
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.initialize import two_view as TV
+    from openvslam_tpu_torch.ops import pose_lm as PL
+    from openvslam_tpu_torch.optimize import pose_optimizer as PO
+    from openvslam_tpu_torch.optimize.ba import BAResult, make_local_ba
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate, synthetic
+
+    fisheye = point == "8"
+    cfg = Config.from_dict(fisheye_config_dict() if fisheye else equirect_config_dict())
+    ref = FISHEYE_REF if fisheye else EQUIRECT_REF
+    cam = cfg.camera
+    tag = f"Phase {point} ({cam.model_name} {cam.cols}x{cam.rows})"
+    scene, gt = camera_scene(synthetic, cam)
+    n = len(gt)
+    imgs, render = camera_frames(dev, cam, scene, gt)
+    log(f"{tag}: {n} frames rendered on the card in {render['render_card_s']:.1f}s (frame 0 in "
+        f"numpy {render['render_host_frame0_s']:.1f}s; within 1 gray level on "
+        f"{render['frame0_within_1_gray']:.6f} of the pixels, max diff "
+        f"{render['frame0_max_gray_diff']})")
+
+    captured = {"init": [], "ba": [], "lm": [], "lm_calls": 0}
+    attempt, eq_lm = TV.init_attempt, PO.equirect_pose_lm
+
+    def spy_attempt(gen, *args, **kw):
+        state = gen.get_state()
+        out = attempt(gen, *args, **kw)
+        if not captured["init"]:
+            captured["init"].append(dict(state=state, args=args, out=out))
+        return out
+
+    def spy_lm(*a, **kw):
+        out = eq_lm(*a, **kw)
+        captured["lm"] = captured["lm"][:1] + [(a, kw, out)]
+        captured["lm_calls"] += 1
+        return out
+
+    s = System(cfg, device=dev)
+    local_ba = s.mapper.local_ba
+
+    def spy_ba(prob, *stop):
+        res = local_ba(prob, *stop)
+        if fisheye or not captured["ba"]:
+            captured["ba"] = [(prob, res)]
+        return res
+
+    TV.init_attempt, PO.equirect_pose_lm, s.mapper.local_ba = spy_attempt, spy_lm, spy_ba
+    cap = KernelCapture(s.tracker.LOCAL_LM_CAP, k3_cols=2)
+    prof_frames = None if fisheye else range(60, 70)
+    s.startup()
+    try:
+        poses, counts, wall, by_name = depth_system_run(
+            s, dev, lambda i: s.feed_monocular_frame(imgs[i], i / cam.fps), n, prof_frames)
+    finally:
+        cap.restore()
+        TV.init_attempt, PO.equirect_pose_lm = attempt, eq_lm
+    s.shutdown()
+    st = s.stats()
+    go, m = s.global_optimizer, s.mapper
+
+    def readings(sys_, poses_):
+        """(first tracked frame, tracked share after it, ATE(sim3) of the
+        tracked trajectory) of one run."""
+        tr = np.array([p is not None for p in poses_])
+        f = int(np.argmax(tr)) if tr.any() else -1
+        _, tp, mask = sys_.tracked_poses()
+        return (f, float(tr[f:].mean()) if f >= 0 else 0.0,
+                trajectory_ate([p if k else None for p, k in zip(tp, mask)], gt, evaluate))
+
+    tracked = np.array([p is not None for p in poses])
+    first, share, ate = readings(s, poses)
+    kf_ate = keyframe_ate(s.map_db, gt, evaluate)
+    runs = [dict(seed=s.tracker.INIT_SEED, first_tracked=first, tracked_share_after_first=share,
+                 ate_sim3_m=ate, keyframe_ate_sim3_m=kf_ate)]
+    for seed in CAMERA_SEEDS[1:] if fisheye else ():
+        sr = System(cfg, device=dev)
+        sr.tracker.gen.manual_seed(seed)
+        sr.startup()
+        pr = [sr.feed_monocular_frame(imgs[i], i / cam.fps) for i in range(n)]
+        sr.shutdown()
+        f_r, share_r, ate_r = readings(sr, pr)
+        runs.append(dict(seed=seed, first_tracked=f_r, tracked_share_after_first=share_r,
+                         ate_sim3_m=ate_r, keyframe_ate_sim3_m=keyframe_ate(sr.map_db, gt,
+                                                                           evaluate)))
+    log(f"{tag} runs by bootstrap seed: {runs}")
+    ate_gated = float(np.median([r["ate_sim3_m"] for r in runs]))
+    tt = frame_ms(s, 10, prof_frames or ())
+    prof = (profile_summary(by_name, len(prof_frames), float(np.median(tt)))
+            if by_name is not None else None)
+    rows = cap.check(tag, with_k3=fisheye)
+
+    # the first bootstrap attempt: its draws replayed from the generator's
+    # state on the card, re-solved on the CPU
+    if not captured["init"]:
+        fail(f"{tag}: the System never attempted the two-view bootstrap")
+    c0 = captured["init"][0]
+    K = c0["args"][12]
+    gen = torch.Generator(device=dev)
+    gen.set_state(c0["state"])
+    pairs = TV.init_pairs(*c0["args"][:12])
+    sh, sf = TV.draw_samples(gen, pairs.pmask, perspective=K is not None)
+    cpu = TV.init_attempt_with_samples(None if sh is None else sh.cpu(), sf.cpu(),
+                                       *(a.cpu() for a in c0["args"][:12]), None)
+    card = c0["out"]
+    # the four E hypotheses come from the SVDs of the card's and the CPU's
+    # solvers, which may order them differently: their counts are compared
+    # as a set, the best one's pose, points and mask exactly as they are
+    exact = ("num_matches", "use_h", "good", "m1", "m2", "pmask", "n_inl")
+    same = (all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)) for f in exact)
+            and torch.equal(card.counts.cpu().sort().values, cpu.counts.sort().values))
+    posed = int(card.counts.max()) > 0
+    dT21 = float((card.T21.cpu() - cpu.T21).abs().max()) if posed else None
+    init_ok = K is None and same and (not posed or dT21 <= 1e-4)
+    init_row = dict(bearing_path=K is None, num_matches=int(card.num_matches),
+                    counts=card.counts.tolist(), cpu_counts=cpu.counts.tolist(),
+                    exact_fields_equal=same, T21_max_abs_diff=dT21, tolerance=1e-4)
+    log(f"{tag} bootstrap replay (first attempt): {init_row}")
+
+    # the fused step's LM replayed on the CPU
+    lm_rows, lm_ok = [], True
+    if fisheye:
+        a3, kw3 = cap.k3
+        Tk, ik, nk, _ = PL.pose_lm(*a3, **kw3)
+        Tc, ic, nc, _ = PL.pose_lm_plain(*(a.cpu() for a in a3), **kw3)
+        dT = float((Tk.cpu() - Tc).abs().max())
+        agree = float((ik.cpu() == ic).float().mean())
+        lm_ok = dT <= 1e-3 and agree >= 0.99
+        lm_rows.append(dict(call="last K3 launch", rows=int(a3[1].shape[0]),
+                            inliers=[int(nk), int(nc)], T_max_abs_diff=dT,
+                            inlier_agreement=agree))
+    else:
+        for which, (a, kw, out) in zip(("first", "last"), captured["lm"]):
+            Tc, ic, nc, _ = PO.equirect_pose_lm(*(t.cpu() for t in a), **kw)
+            dT = float((out[0].cpu() - Tc).abs().max())
+            equal = bool(torch.equal(out[1].cpu(), ic))
+            lm_ok &= equal and dT <= 1e-4
+            lm_rows.append(dict(call=which, rows=int(a[1].shape[0]),
+                                inliers=[int(out[2]), int(nc)], inliers_equal=equal,
+                                T_max_abs_diff=dT))
+        lm_ok &= len(lm_rows) == 2
+    log(f"{tag} pose LM card vs CPU: {lm_rows}")
+    # a local BA re-solved on the CPU, in up to three summation orders
+    ba_cpu = make_local_ba(cam, m.BA_FIRST_ITERS, m.BA_SECOND_ITERS)
+    ba_ok, ba_rows = bool(captured["ba"]), []
+    for prob, res in captured["ba"]:
+        ok_r, rows_r = ba_agreement_any_order(cam, prob.to("cpu"),
+                                              BAResult(*(t.cpu() for t in res)), ba_cpu)
+        ba_ok &= ok_r
+        ba_rows += rows_r
+    log(f"{tag} local BA ({'last' if fisheye else 'first'}) card vs CPU: {ba_rows}")
+
+    out = dict(frames=n, first_tracked=first, tracked_share_after_first=share,
+               tracked_share=float(tracked.mean()), ate_sim3_m=ate,
+               ate_sim3_gated_m=ate_gated, runs=runs,
+               ate_gate_m=LOOP_ATE_MARGIN * ref["ate_sim3_m"], jax_ref=ref,
+               keyframe_ate_sim3_m=kf_ate, keyframes=st["num_keyframes"],
+               landmarks=st["num_landmarks"], fused_frames=st["fused_frames"],
+               loops_closed=go.num_loops_closed, loop_checks_run=go.loop_checks_run,
+               track_ms_median=float(np.median(tt)), track_ms_p90=float(np.percentile(tt, 90)),
+               wall_s=wall, local_ba_runs=m.ba_runs,
+               local_ba_ms_mean=m.ba_wall_s / max(m.ba_runs, 1) * 1e3,
+               mapping_phase_ms_per_keyframe={
+                   k: v / max(s.map_db.n_kfs, 1) * 1e3 for k, v in m.phase_s.items()},
+               loop_check_ms_mean=float(np.mean(go.timings["check"]) * 1e3)
+               if go.timings["check"] else None,
+               launches=counts, launches_per_tracked_frame={
+                   k: v / max(int(tracked.sum()), 1) for k, v in counts.items()},
+               init_check=init_row, lm_check=lm_rows, ba_check=ba_rows, **render)
+    if not fisheye:
+        a, kw, _ = captured["lm"][-1]
+        lm_ms = cuda_ms(lambda: PO.equirect_pose_lm(*a, **kw), 3, warmup=1, repeats=3)[0]
+        lm_kernels = (sum(c for _, c in profile_window(
+            lambda _: PO.equirect_pose_lm(*a, **kw), [0]).values())
+            if dev.type == "cuda" else None)
+        calls = captured["lm_calls"] / max(int(tracked.sum()), 1)
+        out.update(equirect_lm_ms=lm_ms, equirect_lm_rows=int(a[1].shape[0]),
+                   equirect_lm_kernels_per_call=lm_kernels,
+                   equirect_lm_calls_per_tracked_frame=calls,
+                   equirect_lm_launches_per_tracked_frame=(
+                       None if lm_kernels is None else lm_kernels * calls),
+                   profile_frames_60_69=prof)
+        log(f"{tag} equirectangular LM alone: {lm_ms:.3f} ms per call at N "
+            f"{out['equirect_lm_rows']}, {lm_kernels} kernels per call, {calls:.2f} calls per "
+            f"tracked frame")
+    log(f"{tag}: first pose {first}, tracked after it {share:.3f} (JAX {ref['tracked']}), "
+        f"ATE(sim3) {ate:.4f} m (over the runs {ate_gated:.4f} m; gate {out['ate_gate_m']:.4f} m), "
+        f"keyframe ATE {kf_ate:.4f} m, "
+        f"{st['num_keyframes']} keyframes, {st['num_landmarks']} landmarks, fused "
+        f"{st['fused_frames']}, loops closed {go.num_loops_closed}; track ms median "
+        f"{out['track_ms_median']:.2f} p90 {out['track_ms_p90']:.2f}; local BA {m.ba_runs} runs at "
+        f"{out['local_ba_ms_mean']:.1f} ms; mapping ms per keyframe "
+        f"{ {k: round(v, 1) for k, v in out['mapping_phase_ms_per_keyframe'].items()} }; "
+        f"wall {wall:.1f}s; launches {counts}")
+    if prof is not None:
+        log(f"{tag} profile (frames 60-69): device busy {prof['device_busy_ms_per_frame']:.3f} "
+            f"ms/frame over {prof['kernels_per_frame']:.0f} kernels; idle share "
+            f"{prof['device_idle_share']} of the untraced median frame ({prof['frame_ms']:.2f} ms)")
+        for row in prof["top"]:
+            log(f"  {row['ms_per_frame']:.4f} ms/frame x{row['calls_per_frame']:.0f}  {row['name']}")
+    for r in runs:
+        if r["first_tracked"] < 0 or r["first_tracked"] > 15:
+            fail(f"{tag}: no pose by frame 15 (seed {r['seed']}: first {r['first_tracked']})")
+        sh = r["tracked_share_after_first"]
+        if not (sh >= 0.90 and sh >= ref["tracked"] - 0.05):
+            fail(f"{tag}: tracked share {sh:.3f} (seed {r['seed']}) below 0.90 or JAX's "
+                 f"{ref['tracked']} - 0.05")
+    if not ate_gated <= out["ate_gate_m"]:
+        fail(f"{tag}: ATE(sim3) {ate_gated:.4f} m above {out['ate_gate_m']:.4f} m")
+    if not render["frame0_within_1_gray"] >= 0.999:
+        fail(f"{tag}: the card's rendering differs from numpy's")
+    if not init_ok:
+        fail(f"{tag}: the card's bootstrap attempt disagrees with the CPU's")
+    if not lm_ok:
+        fail(f"{tag}: the card's pose LM disagrees with the CPU's")
+    if not ba_ok:
+        fail(f"{tag}: the card's local BA disagrees with the CPU's in every summation order")
+    need = ("fast_score_maps", "projection_match") + (("pose_lm",) if fisheye else ())
+    if min(counts[k] for k in need) == 0:
+        fail(f"{tag} did not launch every kernel of its path: {counts}")
+    return out, counts, rows
 
 
 def ba_agreement(cam, prob, res, ref, allow_flips: bool = False):
@@ -1702,6 +2051,37 @@ def ba_agreement(cam, prob, res, ref, allow_flips: bool = False):
                 X_max_rel_diff=float(dX.max()), X_median_rel_diff=float(dX.median()),
                 centres_sim3_scale=float(scale),
                 ok=inliers_ok and cost_rel <= 1e-4 and reproj <= 0.05)
+
+
+def ba_agreement_any_order(cam, prob, res, solve, orders: int = 3):
+    """``ba_agreement`` of a card's BA result ``res`` on ``prob`` (on the
+    CPU) against ``solve`` (a CPU solver) run on the problem's observations
+    in ``orders`` summation orders: as given, then fixed permutations.  A
+    fisheye window whose rim observations make it ill-conditioned reaches
+    solutions that differ by a few inlier flags and pixels between two
+    orders of the same sums on either backend (tools/camera_ba_orders.py), so
+    the card's result must agree with the CPU's in at least one order; a
+    wrong solve agrees with none.  Returns (ok, rows)."""
+    import torch
+    from openvslam_tpu_torch.optimize.ba import BAResult
+
+    n = int(prob.obs_mask.sum())
+    rows = []
+    for k in range(orders):
+        idx = torch.arange(len(prob.obs_mask))
+        if k:
+            idx[:n] = torch.randperm(n, generator=torch.Generator().manual_seed(k))
+        p2 = prob._replace(obs_cam=prob.obs_cam[idx], obs_lm=prob.obs_lm[idx],
+                           obs_uv=prob.obs_uv[idx], obs_sigma2=prob.obs_sigma2[idx],
+                           obs_mask=prob.obs_mask[idx])
+        r2 = solve(p2)
+        inv = torch.empty_like(idx)
+        inv[idx] = torch.arange(len(idx))
+        ref = BAResult(r2.T_cw, r2.X, r2.obs_inlier[inv], r2.cost)
+        rows.append(dict(order=k, **ba_agreement(cam, prob, res, ref)))
+        if rows[-1]["ok"]:
+            break
+    return rows[-1]["ok"], rows
 
 
 def pose_graph_agreement(prob, out, ref):
@@ -2071,7 +2451,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 6
     from openvslam_tpu_torch.config import Config
 
-    lap_frames = loop_frames(Config.from_dict(loop_config_dict()).camera)
+    lap_frames = loop_frames(Config.from_dict(loop_config_dict()).camera, dev=dev)
     loop_out, loop_counts = loop_phase(dev, frames=lap_frames)
 
     del lap_frames
@@ -2097,11 +2477,17 @@ def main() -> int:
     # ---------------------------------------------------------------- 7c
     sloop_out, sloop_counts = stereo_loop_phase(dev)
 
+    # ---------------------------------------------------------------- 8, 8b
+    fish_out, fish_counts, fish_rows = camera_phase(dev, "8")
+    eq_out, eq_counts, eq_rows = camera_phase(dev, "8b")
+
     # ---------------------------------------------------------------- out
     kernels_out = []
-    depth_counts = dict(stereo_counts, rgbd=rgbd_counts, stereo_loop=sloop_counts)
+    depth_counts = dict(stereo_counts, rgbd=rgbd_counts, stereo_loop=sloop_counts,
+                        fisheye=fish_counts, equirect=eq_counts)
     for key, r in report.items():
-        shapes = r["shapes"] + [stereo_rows[key], rgbd_rows[key]]
+        shapes = (r["shapes"] + [stereo_rows[key], rgbd_rows[key], fish_rows[key]]
+                  + ([eq_rows[key]] if key in eq_rows else []))
         kernels_out.append(dict(
             r, shapes=shapes, max_abs_err=max(x["max_abs_err"] for x in shapes),
             launches=(fs_counts[key] + ts_counts[key] + sys_counts[key] + loop_counts[key]
@@ -2148,6 +2534,12 @@ def main() -> int:
                    rgbd_ate_se3_m=rgbd_out["ate_se3_m"], rgbd_fused_share=rgbd_out["fused_share"],
                    stereo_loop_loops_closed=sloop_out["loops_closed"],
                    stereo_loop_keyframe_ate_se3_m=sloop_out["keyframe_ate_se3_m"],
+                   fisheye_tracked_share=fish_out["tracked_share_after_first"],
+                   fisheye_ate_sim3_m=fish_out["ate_sim3_gated_m"],
+                   fisheye_track_ms_median=fish_out["track_ms_median"],
+                   equirect_tracked_share=eq_out["tracked_share_after_first"],
+                   equirect_ate_sim3_m=eq_out["ate_sim3_gated_m"],
+                   equirect_track_ms_median=eq_out["track_ms_median"],
                    seconds=time.perf_counter() - T0)
     print(json.dumps({"system": sys_out}), flush=True)
     print(json.dumps({"loop": loop_out}), flush=True)
@@ -2156,6 +2548,8 @@ def main() -> int:
     print(json.dumps({"stereo": stereo_out}), flush=True)
     print(json.dumps({"rgbd": rgbd_out}), flush=True)
     print(json.dumps({"stereo_loop": sloop_out}), flush=True)
+    print(json.dumps({"fisheye": fish_out}), flush=True)
+    print(json.dumps({"equirect": eq_out}), flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(card, flush=True)

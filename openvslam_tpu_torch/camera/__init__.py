@@ -1,5 +1,8 @@
-"""Camera models.  Only the perspective model is ported so far."""
-from .base import SetupType, camera_to_config, make_camera_from_config
+"""Camera models: perspective, fisheye (equidistant) and equirectangular."""
+from .base import ModelType, SetupType, camera_to_config, make_camera_from_config
+from .equirectangular import Equirectangular
+from .fisheye import Fisheye
 from .perspective import Perspective
 
-__all__ = ["SetupType", "Perspective", "camera_to_config", "make_camera_from_config"]
+__all__ = ["ModelType", "SetupType", "Perspective", "Fisheye", "Equirectangular",
+           "camera_to_config", "make_camera_from_config"]

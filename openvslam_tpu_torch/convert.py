@@ -21,8 +21,9 @@ from .ops.orb import pack_bits
 
 
 def camera_from_config(spec: Mapping[str, Any]):
-    """A camera from the spec dict of ``openvslam_tpu.camera.base.camera_to_config``
-    (or the reference's ``Camera:`` section)."""
+    """A camera (perspective, fisheye or equirectangular) from the spec dict
+    of ``openvslam_tpu.camera.base.camera_to_config`` (or the reference's
+    ``Camera:`` section)."""
     return make_camera_from_config(spec)
 
 

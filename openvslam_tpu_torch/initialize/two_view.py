@@ -1,21 +1,24 @@
 """Two-view monocular bootstrap (counterpart of ``openvslam_tpu/initialize/two_view.py``;
-ref ``initialize/{base,perspective}``).
+ref ``initialize/{base,perspective,bearing_vector}``).
 
 One attempt:
   1. area-gated descriptor match between the init frame and current frame,
      orientation check, stable compaction of the matched pairs;
-  2. H-RANSAC and F-RANSAC on the same pairs (batched hypotheses);
-  3. model selection by score ratio R_H = S_H/(S_H+S_F) > 0.45 -> H else F;
-  4. decompose (8 Faugeras hypotheses for H / 4 for E), triangulate each,
+  2. perspective camera: H-RANSAC and F-RANSAC on the same pairs (batched
+     hypotheses), model selection by score ratio R_H = S_H/(S_H+S_F) > 0.45
+     -> H else F; fisheye and equirectangular cameras (``K`` None): one
+     8-point E-RANSAC on the bearing vectors;
+  3. decompose (8 Faugeras hypotheses for H / 4 for E), triangulate each,
      pick the hypothesis with the most cheirality+parallax support;
-  5. relative pose + triangulated points + inlier mask.
+  4. relative pose + triangulated points + inlier mask.
 
-Steps 1-4 run on the operands' device without reading anything back; the
+Steps 1-3 run on the operands' device without reading anything back; the
 acceptance thresholds are host logic (``initialize_two_view``).  The draw
 of the RANSAC samples is separate (``draw_samples``): ``init_attempt``
 draws with a ``torch.Generator``, ``init_attempt_with_samples`` takes the
 samples, so an attempt can be replayed on another device or fed the JAX
-package's draws.  Only perspective cameras are ported.
+package's draws.  The JAX package also keeps an unfused multi-call
+version of the attempt as a test oracle; the port has only the fused one.
 """
 from __future__ import annotations
 
@@ -86,8 +89,13 @@ def init_pairs(d1, v1, xy1, ang1, und1, brg1, d2, v2, xy2, ang2, und2, brg2) -> 
                      torch.where(pm, brg1[order], unit_z), torch.where(pm, brg2[m2], unit_z))
 
 
-def draw_samples(gen: torch.Generator, pmask: torch.Tensor, n_hyp: int = N_HYP):
-    """The homography's 4-point and the fundamental's 8-point sample sets."""
+def draw_samples(gen: torch.Generator, pmask: torch.Tensor, n_hyp: int = N_HYP,
+                 perspective: bool = True):
+    """(samples_h, samples_f): the homography's 4-point and the fundamental's
+    8-point sample sets; for the bearing path (``perspective`` False) no
+    homography set and the essential matrix's 8-point set."""
+    if not perspective:
+        return None, ransac.sample_minimal_sets(gen, pmask, n_hyp, 8)
     return (ransac.sample_minimal_sets(gen, pmask, n_hyp, 4),
             ransac.sample_minimal_sets(gen, pmask, n_hyp, 8))
 
@@ -109,9 +117,26 @@ def evaluate_motion_hypotheses(Rs, ts, b1, b2, mask, min_parallax_cos=0.99995):
     return good.sum(-1, dtype=torch.int32), X, good
 
 
+def _pad_essential(Rs_e, ts_e):
+    """The 4 essential hypotheses padded to 8 with (I, 0)."""
+    eye = torch.eye(3, dtype=Rs_e.dtype, device=Rs_e.device).expand(4, 3, 3)
+    return torch.cat([Rs_e, eye]), torch.cat([ts_e, torch.zeros_like(ts_e)])
+
+
 def solve_pairs(pairs: InitPairs, samples_h, samples_f, K) -> InitAttempt:
-    """Steps 2-4 of an attempt on compacted pairs with given samples."""
+    """Steps 2-3 of an attempt on compacted pairs with given samples.  With
+    ``K`` None (a fisheye or equirectangular camera) ``samples_f`` are the
+    essential matrix's 8-point sets on the bearings and ``samples_h`` is
+    not used."""
     p1, p2, b1, b2, pmask = pairs.p1, pairs.p2, pairs.b1, pairs.b2, pairs.pmask
+    dev = b1.device
+    if K is None:
+        E, _, inl_e = ransac.ransac_from_samples(
+            samples_f, lambda i: solvers.fit_essential(b1[i], b2[i]),
+            lambda Ee: solvers.score_essential(Ee, b1, b2, pmask))
+        Rs, ts = _pad_essential(*solvers.decompose_essential(E))
+        return _best_motion(pairs, torch.zeros((), dtype=torch.bool, device=dev), Rs, ts,
+                            torch.arange(8, device=dev) < 4, pmask & inl_e)
     H, s_h, inl_h = ransac.ransac_from_samples(
         samples_h, lambda i: solvers.fit_homography(p1[i], p2[i]),
         lambda Hh: solvers.score_homography(Hh, p1, p2, pmask, sigma=1.0))
@@ -120,35 +145,39 @@ def solve_pairs(pairs: InitPairs, samples_h, samples_f, K) -> InitAttempt:
         lambda Ff: solvers.score_fundamental(Ff, p1, p2, pmask, sigma=1.0))
     use_h = s_h / torch.clamp(s_h + s_f, min=1e-9) > 0.45
     Rs_h, ts_h, _ = solvers.decompose_homography(H, K)
-    Rs_e, ts_e = solvers.decompose_essential(solvers.essential_from_F(F, K, K))
-    Rs_e = torch.cat([Rs_e, torch.eye(3, dtype=K.dtype, device=K.device).expand(4, 3, 3)])
-    ts_e = torch.cat([ts_e, torch.zeros_like(ts_e)])
-    hyp_ok = use_h | (torch.arange(8, device=K.device) < 4)
-    Rs = torch.where(use_h, Rs_h, Rs_e)
-    ts = torch.where(use_h, ts_h, ts_e)
-    eval_mask = pmask & torch.where(use_h, inl_h, inl_f)
-    counts, Xs, goods = evaluate_motion_hypotheses(Rs, ts, b1, b2, eval_mask)
+    Rs_e, ts_e = _pad_essential(*solvers.decompose_essential(solvers.essential_from_F(F, K, K)))
+    return _best_motion(pairs, use_h, torch.where(use_h, Rs_h, Rs_e),
+                        torch.where(use_h, ts_h, ts_e), use_h | (torch.arange(8, device=dev) < 4),
+                        pmask & torch.where(use_h, inl_h, inl_f))
+
+
+def _best_motion(pairs: InitPairs, use_h, Rs, ts, hyp_ok, eval_mask) -> InitAttempt:
+    """Step 3: triangulate the 8 hypotheses (those not ``hyp_ok`` count -1)
+    and keep the best supported."""
+    counts, Xs, goods = evaluate_motion_hypotheses(Rs, ts, pairs.b1, pairs.b2, eval_mask)
     counts = torch.where(hyp_ok, counts, -1)
     best = torch.argmax(counts)
-    T21 = torch.eye(4, dtype=K.dtype, device=K.device)
+    T21 = torch.eye(4, dtype=Rs.dtype, device=Rs.device)
     T21[:3, :3] = Rs[best]
     T21[:3, 3] = ts[best]
     return InitAttempt(pairs.num_matches, use_h, counts, T21, Xs[best], goods[best],
-                       pairs.m1, pairs.m2, pmask, eval_mask.sum())
+                       pairs.m1, pairs.m2, pairs.pmask, eval_mask.sum())
 
 
 def init_attempt(gen: torch.Generator, d1, v1, xy1, ang1, und1, brg1,
                  d2, v2, xy2, ang2, und2, brg2, K, n_hyp: int = N_HYP) -> InitAttempt:
     """One whole bootstrap attempt on the operands' device, drawing its
-    RANSAC samples from ``gen`` (a generator on that device)."""
+    RANSAC samples from ``gen`` (a generator on that device); ``K`` None
+    takes the bearing path."""
     pairs = init_pairs(d1, v1, xy1, ang1, und1, brg1, d2, v2, xy2, ang2, und2, brg2)
-    samples_h, samples_f = draw_samples(gen, pairs.pmask, n_hyp)
+    samples_h, samples_f = draw_samples(gen, pairs.pmask, n_hyp, perspective=K is not None)
     return solve_pairs(pairs, samples_h, samples_f, K)
 
 
 def init_attempt_with_samples(samples_h, samples_f, d1, v1, xy1, ang1, und1, brg1,
                               d2, v2, xy2, ang2, und2, brg2, K) -> InitAttempt:
-    """``init_attempt`` with the (n_hyp,4) and (n_hyp,8) sample sets given."""
+    """``init_attempt`` with the (n_hyp,4) and (n_hyp,8) sample sets given
+    (``K`` None: ``samples_h`` None and the essential matrix's sets)."""
     pairs = init_pairs(d1, v1, xy1, ang1, und1, brg1, d2, v2, xy2, ang2, und2, brg2)
     return solve_pairs(pairs, samples_h, samples_f, K)
 
@@ -161,6 +190,7 @@ def frame_operands(frame, device):
 
 
 def intrinsics(cam, device) -> torch.Tensor:
+    """K of a perspective camera."""
     return torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
                         dtype=torch.float32, device=device)
 
@@ -168,12 +198,11 @@ def intrinsics(cam, device) -> torch.Tensor:
 def initialize_two_view(gen: torch.Generator, frame1, frame2, cam, min_matches=50,
                         min_triangulated=40) -> InitResult:
     """One attempt on the generator's device, then the acceptance thresholds
-    on the host.  frame*: data.Frame."""
-    if getattr(cam, "model_name", "perspective") != "perspective":
-        raise NotImplementedError("only the perspective bootstrap is ported")
+    on the host.  frame*: data.Frame.  A fisheye or equirectangular camera
+    takes the bearing path."""
     dev = gen.device
-    out = init_attempt(gen, *frame_operands(frame1, dev), *frame_operands(frame2, dev),
-                       intrinsics(cam, dev))
+    K = intrinsics(cam, dev) if cam.model_name == "perspective" else None
+    out = init_attempt(gen, *frame_operands(frame1, dev), *frame_operands(frame2, dev), K)
     (num_matches, use_h, counts, T21, X, good, m1, m2, _, n_inl) = (
         t.cpu().numpy() for t in out)
     n = int(num_matches)

@@ -8,10 +8,11 @@
   -> motion-model projection match against the last frame's landmarks
      (radius 7, widened to 14 when fewer than 20 match; kernel K2 twice)
   -> pose-only LM (kernel K3; (u, v, u_right) observations in the stereo
-     and rgbd modes, u_right < 0 marking a keypoint without depth)
+     and rgbd modes, u_right < 0 marking a keypoint without depth; an
+     equirectangular camera's LM is plain PyTorch, as in the JAX package)
   -> local-map projection match around that pose (scale-predicted radius,
      stage-1 keypoints masked; kernel K2)
-  -> pose-only LM over the combined associations (kernel K3)
+  -> pose-only LM over the combined associations
   -> per-keypoint source slot + inlier mask
 
 The local-map and last-frame tables may hold the same physical landmark;

@@ -4,7 +4,9 @@
 detection -> Sim3 validation -> loop correction (pose and landmark
 propagation, duplicate merge) -> Sim3 pose graph -> global BA.  A stereo or
 RGB-D map is metric: ``fix_scale`` locks the Sim3 scale in the validation
-and in every pose-graph vertex, and the global BA takes stereo edges.
+and in every pose-graph vertex, and the global BA takes stereo edges; a
+map whose keyframes come from more than one camera (a merged map) takes
+the multi-camera edge.
 
 Synchronous by default: the loop pipeline runs inline in
 ``queue_keyframe``, called by the mapping module after each keyframe.  In
@@ -43,11 +45,13 @@ import torch
 from ..camera.base import SetupType
 from ..data.bow import BowDatabase, default_vocabulary, load_vocabulary
 from ..device import resolve_device
+from ..optimize import residuals as R
 from ..optimize.ba import BAProblem, make_global_ba
 from ..optimize.pose_graph import PoseGraphProblem, make_pose_graph_optimizer
 from ..utils.log import get_logger
 from ..utils.threads import WorkerFaults, on_stream, sync_current_stream, worker_stream
 from .loop_detector import LoopDetector
+from .mapping_module import kf_camv
 from .relocalizer import Relocalizer
 
 _log = get_logger("global_opt")
@@ -527,8 +531,10 @@ class GlobalOptimizationModule:
         _log.info("global BA: %d keyframes, %d landmarks, %d iters (%s)",
                   len(built["cam_index"]), len(built["lm_index"]), iters,
                   "async" if self.async_global_ba else "sync")
-        ba = self.global_ba if iters == GLOBAL_BA_ITERS else make_global_ba(
-            self.cam, iters=iters, cg_iters=GLOBAL_BA_CG_ITERS, stereo=self.stereo)
+        multicam = built["multicam"]
+        ba = (self.global_ba if iters == GLOBAL_BA_ITERS and not multicam else make_global_ba(
+            self.cam, iters=iters, cg_iters=GLOBAL_BA_CG_ITERS, stereo=self.stereo,
+            multicam=multicam))
         if not self.async_global_ba:
             t0 = time.perf_counter()
             self._apply_global_ba(self._solve_global_ba(ba, built), built)
@@ -599,9 +605,16 @@ class GlobalOptimizationModule:
         lm_valid = np.zeros(L, bool)
         X[:n_l] = db.lm_pos[lm_ids]
         lm_valid[:n_l] = True
+        # a map over several cameras (merged sessions) takes the
+        # multi-camera edge, with each keyframe's camera vector (the
+        # session camera for a keyframe without one) in the observation
+        # columns 2..; a single-camera stereo/RGB-D map carries x_right in
+        # column 2
+        multicam = len({db.kf_camera[int(k)] for k in kf_ids} - {None}) > 1
+        stereo = self.stereo and not multicam
         oc = np.zeros(O, np.int32)
         ol = np.zeros(O, np.int32)
-        ouv = np.zeros((O, 3 if self.stereo else 2), np.float32)
+        ouv = np.zeros((O, 2 + R.CAMV_DIM if multicam else 3 if stereo else 2), np.float32)
         osg = np.ones(O, np.float32)
         om = np.zeros(O, bool)
         lm_lookup = np.full(db.n_lms, -1, np.int32)
@@ -617,12 +630,15 @@ class GlobalOptimizationModule:
         ol[:n_obs] = ol_all[rows]
         ouv[:n_obs, 0] = t_u[rows]
         ouv[:n_obs, 1] = t_v[rows]
-        if self.stereo:
+        if multicam:
+            ouv[:n_obs, 2:] = kf_camv(db, kf_ids, self.cam)[oc[:n_obs]]
+        elif stereo:
             ouv[:n_obs, 2] = t_xr[rows]
         osg[:n_obs] = self.sigma2[np.clip(t_lvl[rows], 0, len(self.sigma2) - 1)]
         om[:n_obs] = True
         prob = (T, cam_opt, cam_valid, X, lm_valid, oc, ol, ouv, osg, om)
-        return {"prob": prob, "cam_index": cam_index, "lm_index": lm_index, "cam_opt": cam_opt}
+        return {"prob": prob, "cam_index": cam_index, "lm_index": lm_index, "cam_opt": cam_opt,
+                "multicam": multicam}
 
 
 def apply_ba_writeback(db, cam_index, lm_index, cam_opt, T_new, X_new):

@@ -3,8 +3,10 @@
 keyframe insertion pipeline — store KF (stereo/RGB-D: seed landmarks from
 measured depth), cull fresh landmarks, triangulate new landmarks with
 covisible keyframes, fuse duplicates, local BA (stereo edges for a stereo
-or RGB-D camera), cull redundant keyframes, hand-off to the global
-optimization module (BoW registration and loop detection).
+or RGB-D camera; the multi-camera edge for a window whose keyframes come
+from more than one camera of the map's registry, as a merged map has them),
+cull redundant keyframes, hand-off to the global optimization module (BoW
+registration and loop detection).
 
 Host orchestration over the numpy map database; the numeric work runs on
 the module's device: epipolar-gated matching, checked triangulation,
@@ -18,8 +20,6 @@ its device work without it, and applies the result under the lock only if
 no whole-map geometry rewrite (loop correction, pose graph, global BA)
 moved ``db.geom_version`` meanwhile; otherwise the result is discarded and
 counted in ``stale_discards``.
-
-Not ported here: the multi-camera BA window (merged sessions).
 """
 from __future__ import annotations
 
@@ -31,9 +31,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..camera.base import SetupType
+from ..camera.base import SetupType, camera_to_config
 from ..device import resolve_device
 from ..models import tracking_ops as TO
+from ..optimize import residuals as R
 from ..optimize.ba import BAProblem, make_local_ba
 from ..utils.log import get_logger
 
@@ -61,6 +62,9 @@ class MappingModule:
         self.stereo = cam.setup != SetupType.MONOCULAR
         self.local_ba = make_local_ba(cam, self.BA_FIRST_ITERS, self.BA_SECOND_ITERS,
                                       stereo=self.stereo)
+        # windows that span keyframes of several cameras (merged maps)
+        self.local_ba_multicam = make_local_ba(None, self.BA_FIRST_ITERS, self.BA_SECOND_ITERS,
+                                               multicam=True)
         self.recent_lms: List[Tuple[int, int]] = []   # (lm, born_kf)
         self.num_covis_for_triangulation = 10
         # capacity-overflow accounting: every silent truncation is counted
@@ -500,9 +504,9 @@ class MappingModule:
             geom_v = self.db.geom_version
         if built is None:
             return
-        prob, cam_index, lm_index, cam_opt, obs_refs, n_obs, lm_ids = built
+        prob, cam_index, lm_index, cam_opt, obs_refs, n_obs, lm_ids, multicam = built
         t0 = time.perf_counter()
-        res = self.local_ba(prob)
+        res = (self.local_ba_multicam if multicam else self.local_ba)(prob)
         T_new = res.T_cw.cpu().numpy()
         X_new = res.X.cpu().numpy()
         inl = res.obs_inlier.cpu().numpy()
@@ -561,6 +565,12 @@ class MappingModule:
         lm_valid = np.zeros(L, bool)
         X[: len(lm_ids)] = db.lm_pos[lm_ids]
         lm_valid[: len(lm_ids)] = True
+        # a window over keyframes of several cameras takes the multi-camera
+        # edge: each observation carries its keyframe's camera vector (the
+        # session camera for a keyframe without one); that edge is
+        # monocular, so x_right is dropped for such windows
+        multicam = len({db.kf_camera[int(k)] for k in cams} - {None}) > 1
+        camv = kf_camv(db, cams, self.cam) if multicam else None
         # observation packing: rows of the flat table whose landmark AND
         # keyframe are both in the window
         cam_lookup = np.full(db.n_kfs, -1, np.int32)
@@ -575,21 +585,23 @@ class MappingModule:
             return None
         oc = np.zeros(O, np.int64)
         ol = np.zeros(O, np.int64)
-        ouv = np.zeros((O, 3 if self.stereo else 2), np.float32)
+        ouv = np.zeros((O, 2 + R.CAMV_DIM if multicam else 3 if self.stereo else 2), np.float32)
         osg = np.ones(O, np.float32)
         om = np.zeros(O, bool)
         oc[:n_obs] = oc_all[rows]
         ol[:n_obs] = ol_all[rows]
         ouv[:n_obs, 0] = t_u[rows]
         ouv[:n_obs, 1] = t_v[rows]
-        if self.stereo:
+        if multicam:
+            ouv[:n_obs, 2:] = camv[oc[:n_obs]]
+        elif self.stereo:
             ouv[:n_obs, 2] = t_xr[rows]
         osg[:n_obs] = self.sigma2[np.clip(t_lvl[rows], 0, self.num_levels - 1)]
         om[:n_obs] = True
         obs_refs = (t_lm[rows].copy(), t_kf[rows].copy())
         prob = BAProblem(*(torch.from_numpy(a) for a in (
             T, cam_opt, cam_valid, X, lm_valid, oc, ol, ouv, osg, om))).to(self.device)
-        return prob, cam_index, lm_index, cam_opt, obs_refs, n_obs, lm_ids
+        return prob, cam_index, lm_index, cam_opt, obs_refs, n_obs, lm_ids, multicam
 
     def _apply_ba_result(self, T_new, X_new, inl, cam_index, lm_index, cam_opt, obs_refs,
                          n_obs, lm_ids):
@@ -664,3 +676,15 @@ class MappingModule:
             if db.kf_valid[k]:
                 db.erase_keyframe(k)
                 self.kfs_culled += 1
+
+
+def kf_camv(db, kfs, session_cam) -> np.ndarray:
+    """(len(kfs), CAMV_DIM) camera vectors of keyframes ``kfs`` from the map's
+    camera registry; a keyframe without a registered camera takes the
+    session camera ``session_cam``."""
+    session = R.make_camv(camera_to_config(session_cam))
+    out = np.zeros((len(kfs), R.CAMV_DIM), np.float32)
+    for i, k in enumerate(kfs):
+        name = db.kf_camera[int(k)]
+        out[i] = R.make_camv(db.cameras[name]) if name in db.cameras else session
+    return out

@@ -4,9 +4,9 @@
 BoW candidates -> stage 1 for all candidates at once (word-gated
 cross-checked descriptor match, EPnP RANSAC on bearings; plain PyTorch,
 candidates padded to ``RELOC_CAND_CAP``) -> stage 2 for the first surviving
-candidate in BoW order (pose LM through kernel K3, widened match by
-projection over the candidate's local map through kernel K2, final K3) ->
-accept above the inlier gate.
+candidate in BoW order (pose LM through kernel K3, or an equirectangular
+camera's plain LM; widened match by projection over the candidate's local
+map through kernel K2; the final LM) -> accept above the inlier gate.
 """
 from __future__ import annotations
 

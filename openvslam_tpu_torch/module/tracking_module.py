@@ -6,8 +6,9 @@ u_right) observations.
 
 Host-side control flow over the numpy map; the numeric work runs on the
 module's device: the two-view bootstrap, projection matching (kernel K2)
-and the pose-only LM (kernel K3) of the classic ladder, and the fused
-TrackStep (K1, K2, K3) on the common path.  The strategy order follows the
+and the pose-only LM (kernel K3; plain PyTorch for an equirectangular
+camera) of the classic ladder, and the fused TrackStep (K1, K2, K3) on the
+common path.  The strategy order follows the
 reference: motion-model match -> (fallback) BoW match vs the reference
 keyframe -> (fallback) descriptor match vs the last frame -> local-map
 tracking -> keyframe-insertion decision; a lost track relocalizes through

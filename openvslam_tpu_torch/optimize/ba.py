@@ -7,11 +7,15 @@ BA (``make_global_ba``, PCG over the reduced camera system).
 * The problem is a fixed-capacity SoA (cams C, landmarks L, observations O)
   with validity masks.
 * Jacobians are the analytic Dx6 (left increment [omega, upsilon]) and Dx3
-  blocks of the perspective edge, mono (D = 2, (u, v) observations) or
-  stereo (D = 3, (u, v, u_right), u_right < 0 marking a mono observation
-  whose third row is masked); ``tests/test_torch_mapping.py`` and
-  ``tests/test_torch_stereo.py`` hold them against ``torch.func.jacfwd`` of
-  the residual.
+  blocks of the edge: the pinhole edge of perspective and fisheye cameras,
+  mono (D = 2, (u, v) observations) or stereo (D = 3, (u, v, u_right),
+  u_right < 0 marking a mono observation whose third row is masked); the
+  equirectangular edge (D = 2, lon/lat pixels, the u residual wrapped
+  across the seam); with ``multicam`` the multi-camera edge, whose
+  intrinsics ride in each observation ((O, 2 + CAMV_DIM) observations).
+  ``tests/test_torch_mapping.py``, ``tests/test_torch_stereo.py`` and
+  ``tests/test_torch_fisheye_equirect.py`` hold them against
+  ``torch.func.jacfwd`` of the residual.
 * Per-observation blocks are summed with ``index_add_`` (on CUDA in no
   fixed order, so card and CPU agree to rounding).
 * Landmark blocks are 3x3, eliminated in parallel (batched inverse); the
@@ -61,38 +65,53 @@ def _rho(c2, thr):
     return torch.where(c2 <= thr, c2, 2.0 * torch.sqrt(thr * torch.clamp(c2, min=0.0)) - thr)
 
 
-def reprojection_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
+def reprojection_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv, multicam: bool = False):
     """Residuals obs - proj(T X) of every observation: (r (O,D), ok (O,),
     camera-frame points (O,3)).  With D = 3 the third component is the
-    right-image u, zero where the observation's u_right < 0."""
+    right-image u, zero where the observation's u_right < 0; with
+    ``multicam`` each observation carries its camera (``cam`` unused)."""
     Tc = T_cw[obs_cam]
     xc = torch.einsum("oij,oj->oi", Tc[:, :3, :3], X[obs_lm]) + Tc[:, :3, 3]
-    uv, z, _ = cam.project(xc)
-    ok = xc[:, 2] > _EPS
-    if obs_uv.shape[-1] == 3:
-        r = obs_uv - torch.cat([uv, cam.stereo_right_u(uv, z)[:, None]], -1)
-        r = torch.cat([r[:, :2], torch.where(obs_uv[:, 2:] < 0, 0.0, r[:, 2:])], -1)
+    if multicam:
+        r, ok = R.multicam_edge(xc, obs_uv)
+    elif obs_uv.shape[-1] == 3:
+        r, ok = R.stereo_edge(cam, xc, obs_uv)
     else:
-        r = obs_uv - uv
-    return torch.where(ok[:, None], r, torch.zeros_like(r)), ok, xc
+        r, ok = R.mono_edge(cam, xc, obs_uv)
+    return r, ok, xc
 
 
-def reprojection_residuals_and_jacobians(cam, T_cw, X, obs_cam, obs_lm, obs_uv):
+def _pinhole_rows(fx, fy, x, y, z):
+    """d(u, v)/d(xc) of the pinhole projection, (O,2,3)."""
+    zero = torch.zeros_like(z)
+    return torch.stack([torch.stack([fx / z, zero, -fx * x / (z * z)], -1),
+                        torch.stack([zero, fy / z, -fy * y / (z * z)], -1)], -2)
+
+
+def reprojection_residuals_and_jacobians(cam, T_cw, X, obs_cam, obs_lm, obs_uv,
+                                         multicam: bool = False):
     """Residuals (O,D), ok (O,), and their Jacobians with respect to the
     left increment exp(xi) T of the observing camera (O,D,6) and to the
-    landmark position (O,D,3); zero where the point is behind the camera
-    (and, for D = 3, in the masked third row)."""
-    r, ok, xc = reprojection_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv)
-    x, y, z = xc[:, 0], xc[:, 1], torch.where(ok, xc[:, 2], torch.ones_like(xc[:, 2]))
-    zero = torch.zeros_like(z)
+    landmark position (O,D,3); zero where the observation is not ok (and,
+    for D = 3, in the masked third row)."""
+    r, ok, xc = reprojection_residuals(cam, T_cw, X, obs_cam, obs_lm, obs_uv, multicam)
+    x, y = xc[:, 0], xc[:, 1]
+    z = torch.where(xc[:, 2] > _EPS, xc[:, 2], torch.ones_like(xc[:, 2]))
     # d(prediction)/d(xc); the residual's Jacobian is its negative
-    rows = [torch.stack([cam.fx / z, zero, -cam.fx * x / (z * z)], -1),
-            torch.stack([zero, cam.fy / z, -cam.fy * y / (z * z)], -1)]
-    if obs_uv.shape[-1] == 3:
-        # u_right = u - fxb / z
-        ur = torch.stack([cam.fx / z, zero, (cam.focal_x_baseline - cam.fx * x) / (z * z)], -1)
-        rows.append(ur * (obs_uv[:, 2] >= 0)[:, None])
-    P = torch.stack(rows, -2) * ok[:, None, None]
+    if multicam:
+        fx, fy, _, _, cols, rows, is_eq = obs_uv[:, 2:9].unbind(-1)
+        P = torch.where((is_eq > 0.5)[:, None, None], R.equirect_uv_jacobian(xc, cols, rows),
+                        _pinhole_rows(fx, fy, x, y, z))
+    elif cam.model_name == "equirectangular":
+        P = R.equirect_uv_jacobian(xc, cam.cols, cam.rows)
+    else:
+        P = _pinhole_rows(cam.fx, cam.fy, x, y, z)
+        if obs_uv.shape[-1] == 3:
+            # u_right = u - fxb / z
+            zero = torch.zeros_like(z)
+            ur = torch.stack([cam.fx / z, zero, (cam.focal_x_baseline - cam.fx * x) / (z * z)], -1)
+            P = torch.cat([P, (ur * (obs_uv[:, 2] >= 0)[:, None])[:, None]], -2)
+    P = P * ok[:, None, None]
     # d(exp(xi) xc)/d(xi) at 0 = [-hat(xc) | I]
     Jc = torch.cat([P @ _hat(xc), -P], -1)
     Jl = -P @ T_cw[obs_cam][:, :3, :3]
@@ -106,16 +125,16 @@ def _hat(w):
                         torch.stack([-y, x, zero], -1)], -2)
 
 
-def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: bool = False):
-    """Dense-Schur local BA for a perspective camera, mono edges or (with
-    ``stereo``) stereo edges over (O,3) observations.  Returns
-    fn(problem: BAProblem) -> BAResult on the problem's device, with the
-    reference's two-phase schedule: ``first_iters`` LM iterations, outlier
-    rejection (observations beyond the chi2 gate are dropped),
+def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: bool = False,
+                  multicam: bool = False):
+    """Dense-Schur local BA: mono edges of ``cam``, (with ``stereo``) stereo
+    edges over (O,3) observations, or (with ``multicam``; ``cam`` may be
+    None) the multi-camera edge over (O, 2 + CAMV_DIM) observations.
+    Returns fn(problem: BAProblem) -> BAResult on the problem's device, with
+    the reference's two-phase schedule: ``first_iters`` LM iterations,
+    outlier rejection (observations beyond the chi2 gate are dropped),
     ``second_iters`` more."""
-    if cam.model_name != "perspective":
-        raise NotImplementedError("only the perspective local BA is ported")
-    chi2_thr = R.CHI2_3D if stereo else R.CHI2_2D
+    chi2_thr = R.CHI2_3D if stereo and not multicam else R.CHI2_2D
 
     def lm_phase(p: BAProblem, active: torch.Tensor, iters: int):
         dev, dt = p.T_cw.device, p.T_cw.dtype
@@ -131,7 +150,7 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: boo
         pair = ol * C + oc
 
         def cost_of(T, X):
-            r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv, multicam)
             c2 = (r * r).sum(-1) * inv_s2
             w = (obs_ok_static & ok).to(dt)
             return (_rho(c2, chi2_thr) * w).sum(), c2, ok
@@ -144,7 +163,8 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: boo
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
         cost = torch.zeros((), dtype=dt, device=dev)
         for _ in range(iters):
-            r, ok, Jc, Jl = reprojection_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, Jc, Jl = reprojection_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv,
+                                                                   multicam)
             c2 = (r * r).sum(-1) * inv_s2
             w = R.huber_weight(c2, chi2_thr) * inv_s2 * (obs_ok_static & ok).to(dt)
             # fixed cameras keep their Jacobians out of the system (they
@@ -204,10 +224,11 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: boo
 # Global BA: matrix-free Schur complement + PCG
 # ---------------------------------------------------------------------------
 
-def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = False):
+def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = False,
+                   multicam: bool = False):
     """Matrix-free LM for full-map BA over an unbounded camera count
     (counterpart of ``make_global_ba``; ref ``optimize/global_bundle_adjuster``),
-    mono edges or (with ``stereo``) stereo edges over (O,3) observations.
+    with the edges of ``make_local_ba``.
 
     Same problem struct as local BA; the reduced camera system is never
     formed: each PCG step applies S x = Hcc x - W (Hll^-1 (W^T x)) with
@@ -215,9 +236,7 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
     inverse camera blocks.  Gauge: cam_opt False for the origin keyframe.
     Like local BA, the iterations are Python loops over 0-d tensors and
     nothing is read back to the host inside the solve."""
-    if cam.model_name != "perspective":
-        raise NotImplementedError("only the perspective global BA is ported")
-    chi2_thr = R.CHI2_3D if stereo else R.CHI2_2D
+    chi2_thr = R.CHI2_3D if stereo and not multicam else R.CHI2_2D
 
     def optimize(p: BAProblem) -> BAResult:
         dev, dt = p.T_cw.device, p.T_cw.dtype
@@ -231,7 +250,7 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
         eyel = torch.eye(3, dtype=dt, device=dev)
 
         def cost_of(T, X):
-            r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv, multicam)
             c2 = (r * r).sum(-1) * inv_s2
             w = (obs_ok_static & ok).to(dt)
             return (_rho(c2, chi2_thr) * w).sum(), c2, ok
@@ -244,7 +263,8 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
         cost = torch.zeros((), dtype=dt, device=dev)
         for _ in range(iters):
-            r, ok, Jc, Jl = reprojection_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv)
+            r, ok, Jc, Jl = reprojection_residuals_and_jacobians(cam, T, X, oc, ol, p.obs_uv,
+                                                                   multicam)
             c2 = (r * r).sum(-1) * inv_s2
             w = R.huber_weight(c2, chi2_thr) * inv_s2 * (obs_ok_static & ok).to(dt)
             Jc = Jc * cam_free[oc][:, None, None]

@@ -3,14 +3,18 @@
 mapping and global optimization modules, and exposes startup, shutdown,
 ``feed_monocular_frame``, ``feed_stereo_frame``, ``feed_RGBD_frame``, the
 pipelined ``feed_sequence``, the mapping and loop-detector switches,
-pause/resume, reset and the trajectory accessors.  A perspective camera of
-any setup runs: monocular, stereo (a rectified pair; per-keypoint depth by
-the dense SAD match against the right image) or RGB-D (a registered depth
-map, scaled by ``depthmap_factor``).  Stereo and RGB-D maps are metric: the
-map starts from one frame's depths and loop closure locks the Sim3 scale.
+pause/resume, reset and the trajectory accessors.  A perspective or
+fisheye camera of any setup runs: monocular, stereo (a rectified pair;
+per-keypoint depth by the dense SAD match against the right image) or
+RGB-D (a registered depth map, scaled by ``depthmap_factor``); an
+equirectangular camera is monocular.  A monocular map starts from a
+two-view bootstrap (H and F for a perspective camera, E on bearings for
+the others).  Stereo and RGB-D maps are metric: the map starts from one
+frame's depths and loop closure locks the Sim3 scale.
 
 Tracking runs in the caller.  The common TRACKING path is one fused
-``TrackStep`` per frame (kernels K1, K2, K3 on the card); initialization,
+``TrackStep`` per frame (kernels K1, K2, K3 on the card; an
+equirectangular camera's pose LM is plain PyTorch); initialization,
 relocalization and the rare fallbacks take the classic module ladder.
 
 Synchronous by default: mapping runs after each keyframe insertion, and so
@@ -23,7 +27,7 @@ correction on a thread of its own; each runs on a CUDA stream of its own,
 and they share the map under one lock (``map_lock``).  The feed paces itself
 to the mapper (``_pace_mapper``) so its queue stays short.
 
-Not ported: other camera models, map IO, publishers and autosave.
+Not ported: map IO, publishers and autosave.
 """
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 ``openvslam_tpu/utils/synthetic.py`` that the port's tests and
 ``chip_smoke.py`` use: the patch scene and orbit, and the textured n-gon
 room with its lap trajectory; the renderers project with the port's
-camera), and the matcher's adversarial inputs (``adversarial_match_cases``)."""
+camera, and the room also renders with torch ops on any device,
+``RoomSceneRenderer.render_torch``), and the matcher's adversarial inputs
+(``adversarial_match_cases``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -179,6 +181,46 @@ class RoomSceneRenderer:
             out = np.where(ok, val, out)
             best_lam = np.where(ok, lam, best_lam)
         return out.reshape(self.rows, self.cols).astype(np.uint8)
+
+    def render_torch(self, cam, T_cw: np.ndarray, device) -> torch.Tensor:
+        """``render`` as torch ops on ``device`` (float64 rays and texture
+        weights, as numpy computes them): a (rows, cols) uint8 tensor there.
+        A 1920x960 frame takes seconds in numpy on the host."""
+        dev = torch.device(device)
+        f64 = torch.float64
+        cache = self.__dict__.setdefault("_walls_dev", {})
+        if dev not in cache:
+            cache[dev] = [torch.from_numpy(t).to(dev).reshape(-1) for t in self.walls]
+        vv, uu = torch.meshgrid(torch.arange(self.rows, device=dev),
+                                torch.arange(self.cols, device=dev), indexing="ij")
+        pix = torch.stack([uu.reshape(-1), vv.reshape(-1)], -1).to(torch.float32)
+        brg = cam.keypoints_to_bearings(pix).to(f64)
+        c_h = -T_cw[:3, :3].T @ T_cw[:3, 3]
+        c = torch.as_tensor(c_h, dtype=f64, device=dev)
+        d = brg @ torch.as_tensor(T_cw[:3, :3], dtype=f64, device=dev)
+        best = torch.full((d.shape[0],), float("inf"), dtype=f64, device=dev)
+        out = torch.zeros(d.shape[0], dtype=f64, device=dev)
+        for (p0, n, u_axis), tex, flat in zip(self.defs, self.walls, cache[dev]):
+            n_t, u_t = (torch.as_tensor(a, dtype=f64, device=dev) for a in (n, u_axis))
+            denom = d @ n_t
+            lam = float((p0 - c_h) @ n) / torch.where(
+                torch.abs(denom) < 1e-9, torch.full_like(denom, 1e-9), denom)
+            X = c[None, :] + lam[:, None] * d
+            tu = (X @ u_t + self.wall_w / 2) * self.res
+            tv = (X[:, 1] - self.y0) * self.res
+            th, tw = tex.shape
+            ok = ((lam > 1e-3) & (lam < best) & (tu >= 0) & (tu < tw - 1) & (tv >= 0)
+                  & (tv < th - 1))
+            x0 = torch.clamp(torch.floor(tu), 0, tw - 2).to(torch.int64)
+            y0 = torch.clamp(torch.floor(tv), 0, th - 2).to(torch.int64)
+            fx = torch.clamp(tu - x0, 0, 1)
+            fy = torch.clamp(tv - y0, 0, 1)
+            at = lambda y, x: flat[y * tw + x].to(f64)  # noqa: E731
+            val = (at(y0, x0) * (1 - fx) * (1 - fy) + at(y0, x0 + 1) * fx * (1 - fy)
+                   + at(y0 + 1, x0) * (1 - fx) * fy + at(y0 + 1, x0 + 1) * fx * fy)
+            out = torch.where(ok, val, out)
+            best = torch.where(ok, lam, best)
+        return out.reshape(self.rows, self.cols).to(torch.uint8)
 
 
 class PatchSceneRenderer:

@@ -10,8 +10,9 @@
 * the package carries its own descriptor patterns and vocabularies, and a
   missing one raises;
 * the System runs with loop detection on (the config's default), takes
-  monocular, stereo and RGB-D perspective cameras, and refuses what is not
-  ported (the fisheye and equirectangular cameras) instead of ignoring it;
+  perspective and fisheye cameras of any setup and the (always monocular)
+  equirectangular camera, and refuses an unknown camera model with the
+  JAX factory's ValueError instead of ignoring it;
 * no module names a path outside the package (its native source and build
   live inside it), and a failed native build raises instead of falling
   back to Python;
@@ -160,8 +161,14 @@ def test_system_refuses_missing_cuda_and_unported_features(monkeypatch):
     s.shutdown()
     for model in ("fisheye", "equirectangular"):
         cam = dict(_small_config()["Camera"], model=model)
-        with pytest.raises(NotImplementedError, match=model):
-            System(Config.from_dict(_small_config(Camera=cam)), device="cpu")
+        assert System(Config.from_dict(_small_config(Camera=cam)),
+                      device="cpu").cam.model_name == model
+    cam = dict(_small_config()["Camera"], model="omnidirectional")
+    with pytest.raises(ValueError, match="omnidirectional"):
+        System(Config.from_dict(_small_config(Camera=cam)), device="cpu")
+    cam = dict(_small_config()["Camera"], model="equirectangular", setup="stereo")
+    s = System(Config.from_dict(_small_config(Camera=cam)), device="cpu")
+    assert s.cam.setup.value == "monocular" and s._track_step.mode == "mono"
     assert System(Config.from_dict(_small_config()), device="cpu").device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for setup in ("monocular", "stereo", "rgbd"):
