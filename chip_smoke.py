@@ -78,15 +78,29 @@ Phases:
      the seam: the plain lon/lat pose LM (no K3 on this path, as in the
      JAX package), the equirectangular BA edge; the first bootstrap
      attempt, the first and last LM and one local BA replayed on the CPU,
-     a profiler window over 10 frames; phase 8's gates.
+     a profiler window over 10 frames; phase 8's gates;
+  9. map reuse (the reference's ``--map-db`` workflow), after phase 5b, on
+     phase 5's System and frames: the map saved in both schemas and loaded into
+     fresh Systems (native columns, the reference schema's poses,
+     descriptors and observation counts, and the rebuilt BoW database held
+     against the saved session's), the trajectories written and read back;
+     mapping disabled and the tracker LOST, frames 100-159 fed again, frame
+     by frame on the native map and through ``feed_sequence(depth=2)`` on
+     the other: relocalized within 3 frames, tracked >= 0.90, the map
+     unchanged, ATE <= 0.05 m under phase 5's own Sim(3) alignment, the
+     kernels held against their plain versions at these launches; then a
+     session resumed from an autosave snapshot keeps mapping (tracked >=
+     0.90, the map grows, ATE <= 0.05 m under the first session's
+     alignment); the viewers' exports on the loaded map.
 Kernel launch counts are reset just before each main-path run and read just
 after it.  Any mismatch, any kernel that a main-path run did not launch, or
 any exception exits non-zero.  The last line is a JSON object with the
 device; the line before it is the card's name and power limit; the line
 before that lists every kernel with its numbers and its launches in the
 main-path runs (FrameStep, TrackStep, System, loop-and-relocalization,
-their async runs, stereo, stereo async, RGB-D, the stereo loop, fisheye
-and equirectangular).
+their async runs, stereo, stereo async, RGB-D, the stereo loop, fisheye,
+equirectangular and map reuse).  ``faulthandler`` is on for the whole run:
+a fault in native code leaves every thread's Python stack on stderr.
 """
 from __future__ import annotations
 
@@ -530,7 +544,8 @@ def system_phase(dev, n: int = 240, frames=None):
     """Phase 5: the port's System on ``dev`` (the card) at bench.py's system
     point (``system_config``) over ``n`` rendered frames (or ``frames``,
     as ``system_frames`` returns them), fed one by one at 20 fps
-    timestamps.  Returns (summary dict, launch counts of the run)."""
+    timestamps.  Returns (summary dict, launch counts of the run, the
+    System, shut down with its map kept, its poses)."""
     import torch
     from openvslam_tpu_torch import kernels
     from openvslam_tpu_torch.initialize import two_view as TV
@@ -695,7 +710,7 @@ def system_phase(dev, n: int = 240, frames=None):
         fail("System: the card's bootstrap attempt disagrees with the CPU's")
     if not ok_ba:
         fail("System: the card's local BA disagrees with the CPU's")
-    return out, counts
+    return out, counts, s, poses
 
 
 class LapRender:
@@ -2007,7 +2022,8 @@ def ba_agreement(cam, prob, res, ref, allow_flips: bool = False):
     final cost within 1e-4 of the reference's, and every inlier
     observation reprojected within 0.05 px of the reference's
     reprojection.  With ``allow_flips`` (the global BA, whose tens of
-    thousands of observations the card sums in no fixed order), an
+    thousands of observations the card sums in another order than the
+    CPU), an
     observation whose chi2 lies within 5 % of the threshold in both
     solutions (the band a 0.05 px reprojection difference spans there)
     may change side; such flips are counted and reported."""
@@ -2096,8 +2112,474 @@ def pose_graph_agreement(prob, out, ref):
                 ok=abs(c_out - c_ref) <= 1e-4 * abs(c_ref) and d <= 1e-5)
 
 
-def main() -> int:
+# Phase 9's frames: phase 5's, fed to the loaded maps at new timestamps, and
+# the autosave resume (session A maps frames 0-119 with a snapshot every 5
+# keyframes; a System loaded from the last snapshot is fed frames 100-179)
+MAP_REUSE_FRAMES = (100, 160)
+RESUME_MAP_FRAMES = 120
+RESUME_FRAMES = (100, 180)
+
+
+def centres(poses) -> np.ndarray:
+    return np.stack([-p[:3, :3].T.astype(np.float64) @ p[:3, 3] for p in poses])
+
+
+def sim3_alignment(poses, gt, evaluate):
+    """(s, R, t) aligning the tracked frames' centres of ``poses`` (None
+    where untracked) onto the ground truth of the same frames (Umeyama)."""
+    idx = [i for i, p in enumerate(poses) if p is not None]
+    return evaluate.umeyama_alignment(centres([poses[i] for i in idx]),
+                                      centres([gt[i] for i in idx]), with_scale=True)
+
+
+def ate_under(align, poses, gt_rows) -> float:
+    """RMSE of the tracked centres of ``poses`` mapped by a fixed ``align``
+    (s, R, t) against the ground truth poses ``gt_rows`` (not re-fitted)."""
+    rows = [(p, g) for p, g in zip(poses, gt_rows) if p is not None]
+    if not rows:
+        return float("inf")
+    s, R, t = align
+    ce = centres([p for p, _ in rows])
+    err = (s * (R @ ce.T)).T + t - centres([g for _, g in rows])
+    return float(np.sqrt((err ** 2).sum(-1).mean()))
+
+
+def so3_projection(R: np.ndarray) -> np.ndarray:
+    """The rotation nearest to ``R`` (Frobenius norm)."""
+    U, _, Vt = np.linalg.svd(np.asarray(R, np.float64))
+    return U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+
+
+def trajectory_readback(saved, ts, tum, kitti=None) -> dict:
+    """The port's readers on the TUM (and KITTI) files written from poses
+    ``saved`` (N,4,4 camera<-world) at ``ts``: the largest timestamp error,
+    rotation error and camera-centre error.  A TUM file stores the unit
+    quaternion of each world<-camera rotation, so its rotation is held
+    against the rotation of that quaternion (the writer's own conversion,
+    ``tum_rot``; ``tum_rot_vs_so3`` reports the distance to the saved
+    rotation's projection onto SO(3), which the quaternion does not reach
+    when the saved matrix has drifted off SO(3) by ``drift_from_so3``).
+    A KITTI file stores the world<-camera 3x4 rows, which the reader
+    inverts again: its poses are held against the saved poses inverted
+    twice by the same algebra (``kitti``: with a drifted rotation R the
+    translation comes back as R R^T t).  Tolerance 1e-6 throughout (the
+    files print 9 decimals or 10 significant digits)."""
+    from openvslam_tpu_torch.io import trajectory_io as TIO
+
+    saved = np.asarray(saved, np.float64)
+    R = saved[:, :3, :3]
+    proj = np.stack([so3_projection(r) for r in R]) if len(R) else R
+    quat = np.stack([TIO._quat_to_rot(TIO._rot_to_quat(r.T)).T for r in R]) if len(R) else R
+    c = centres(saved) if len(R) else np.zeros((0, 3))
+    big = lambda x: float(np.abs(x).max()) if x.size else 0.0  # noqa: E731
+    t_read, p_read = TIO.load_trajectory_tum(tum)
+    out = dict(n=len(saved), drift_from_so3=big(R - proj), n_read=len(p_read))
+    if len(p_read) == len(saved):
+        out.update(tum_ts=big(t_read - np.asarray(ts)), tum_rot=big(p_read[:, :3, :3] - quat),
+                   tum_rot_vs_so3=big(p_read[:, :3, :3] - proj),
+                   tum_centre=big(centres(p_read) - c) if len(R) else 0.0)
+    ok = out["n_read"] == len(saved) and max(out.get("tum_ts", 1), out.get("tum_rot", 1),
+                                              out.get("tum_centre", 1)) <= 1e-6
+    if kitti is not None:
+        k_read = TIO.load_trajectory_kitti(kitti)
+        ok &= len(k_read) == len(saved)
+        if ok:
+            twice = TIO._invert_poses(TIO._invert_poses(saved)) if len(R) else saved
+            out.update(kitti=big(k_read[:, :3] - twice[:, :3]),
+                       kitti_centre_vs_saved=big(centres(k_read) - c) if len(R) else 0.0)
+            ok &= out["kitti"] <= 1e-6
+    out["ok"] = bool(ok)
+    return out
+
+
+def _id_maps(src):
+    """Saved id -> loaded id of the keyframes and landmarks (both loaders
+    compact the live ids in order)."""
+    kf = {int(k): i for i, k in enumerate(src.valid_kf_ids())}
+    lm = {int(l): i for i, l in enumerate(src.valid_lm_ids())}
+    return kf, lm
+
+
+def recomputed_covisibility(src):
+    """The saved map's covisibility graph recounted from its observations
+    (the loaders recount it; the live graph is updated at insertion, fusion
+    and culling and may lag)."""
+    from openvslam_tpu_torch.convert import map_database_from_state, map_state
+
+    ref = map_database_from_state(map_state(src))
+    for k in ref.valid_kf_ids():
+        ref.covis[int(k)] = {}
+    for k in ref.valid_kf_ids():
+        ref.update_connections(int(k), set_parent=False)
+    return ref.covis
+
+
+def native_map_diff(src, dst) -> dict:
+    """Column by column, the loaded native map ``dst`` against the saved map
+    ``src`` up to id compaction: {column: number of keyframes or landmarks
+    that differ}; the covisibility weights against the saved map's
+    recounted graph (``stale_covis`` counts the saved map's own entries that
+    the recount changes)."""
+    kmap, lmap = _id_maps(src)
+    mk = lambda k: kmap.get(int(k), -1)  # noqa: E731
+    ml = lambda l: lmap.get(int(l), -1) if l >= 0 else -1  # noqa: E731
+    covis = recomputed_covisibility(src)
+    bad = {}
+
+    def count(name, same):
+        bad[name] = bad.get(name, 0) + (not same)
+
+    for k, d in kmap.items():
+        for col in ("kf_xy", "kf_xy_undist", "kf_bearing", "kf_level", "kf_angle", "kf_desc_u32",
+                    "kf_kpt_valid", "kf_x_right", "kf_depth"):
+            count(col, np.array_equal(getattr(src, col)[k], getattr(dst, col)[d]))
+        for col in ("kf_pose_cw", "kf_timestamp", "kf_src_frame"):
+            count(col, np.array_equal(getattr(src, col)[k], getattr(dst, col)[d]))
+        v = src.kf_kpt_valid[k].astype(bool)
+        count("kf_desc_i8", np.array_equal(src.kf_desc_i8[k][v], dst.kf_desc_i8[d][v]))
+        count("kf_lm_idx", np.array_equal(np.array([ml(x) for x in src.kf_lm_idx[k]]),
+                                          dst.kf_lm_idx[d]))
+        count("kf_camera", src.kf_camera[k] == dst.kf_camera[d])
+        count("parent", mk(src.parent[k]) == dst.parent[d])
+        count("loop_edges", {mk(x) for x in src.loop_edges[k]} == dst.loop_edges[d])
+        count("covis", {mk(nb): w for nb, w in covis[k].items()} == dst.covis[d])
+        count("stale_covis", covis[k] == src.covis[k])
+    for l, d in lmap.items():
+        for col in ("lm_pos", "lm_desc_u32", "lm_normal", "lm_min_dist", "lm_max_dist",
+                    "lm_n_visible", "lm_n_found", "lm_num_obs", "lm_valid"):
+            count(col, np.array_equal(getattr(src, col)[l], getattr(dst, col)[d]))
+        count("lm_ref_kf", mk(src.lm_ref_kf[l]) == dst.lm_ref_kf[d])
+        count("lm_first_kf", mk(src.lm_first_kf[l]) == dst.lm_first_kf[d])
+        count("lm_obs", {mk(k): i for k, i in src.lm_obs[l].items()} == dst.lm_obs[d])
+    return bad
+
+
+def ref_map_diff(src, dst) -> dict:
+    """The loaded reference-schema map ``dst`` against ``src`` (largest
+    |difference|): rotations against the rotation of the quaternion the
+    schema stores for each saved one (``rot_vs_quaternion``; Eigen's
+    conversion, as the reference and the JAX package write it) and, reported
+    beside it, against the saved rotation's projection onto SO(3) and the
+    saved rotation's own distance from SO(3) (float32 drift of the pose
+    updates); translations; per-keyframe descriptor multisets (keyframes
+    that differ); the multiset of observation counts (equal or not) and
+    the landmark count."""
+    from openvslam_tpu_torch.io.msgpack_compat import quat_xyzw_to_rot, rot_to_quat_xyzw
+
+    kmap, _ = _id_maps(src)
+    rot = rot_q = drift = trans = 0.0
+    desc_bad = 0
+    for k, d in kmap.items():
+        T, Tl = src.kf_pose_cw[k].astype(np.float64), dst.kf_pose_cw[d].astype(np.float64)
+        proj = so3_projection(T[:3, :3])
+        rot = max(rot, float(np.abs(Tl[:3, :3] - proj).max()))
+        rot_q = max(rot_q, float(np.abs(
+            Tl[:3, :3] - quat_xyzw_to_rot(rot_to_quat_xyzw(T[:3, :3]))).max()))
+        drift = max(drift, float(np.abs(T[:3, :3] - proj).max()))
+        trans = max(trans, float(np.abs(Tl[:3, 3] - T[:3, 3]).max()))
+        a = src.kf_desc_u32[k][src.kf_kpt_valid[k].astype(bool)]
+        b = dst.kf_desc_u32[d][dst.kf_kpt_valid[d].astype(bool)]
+        desc_bad += not (a.shape == b.shape and np.array_equal(a[np.lexsort(a.T)],
+                                                               b[np.lexsort(b.T)]))
+    o1 = sorted(int(src.lm_num_obs[l]) for l in src.valid_lm_ids())
+    o2 = sorted(int(dst.lm_num_obs[l]) for l in dst.valid_lm_ids())
+    return dict(rot_vs_quaternion=rot_q, rot_vs_so3_projection=rot, saved_drift_from_so3=drift,
+                trans=trans, desc_multiset_kfs_differing=desc_bad,
+                obs_count_multiset_equal=o1 == o2, landmarks=[len(o1), len(o2)])
+
+
+def bow_diff(src_map, src_bow, dst_bow, compacted: bool) -> dict:
+    """The rebuilt BoW database against the saving session's, over the live
+    keyframes: word ids per keyframe (``compacted``: the reference schema
+    keeps only valid keypoints, in order), the postings (word, keyframe)
+    from each inverted index's CSR view, the tf-idf vectors."""
+    kmap, _ = _id_maps(src_map)
+    missing = [k for k in kmap if k not in src_bow.kf_words]
+    words_bad, vec_err = 0, 0.0
+    for k, d in kmap.items():
+        if k in missing:
+            continue
+        w = src_bow.kf_words[k]
+        if compacted:
+            sel = src_map.kf_kpt_valid[k].astype(bool)
+            w = np.concatenate([w[sel], np.full(len(w) - int(sel.sum()), -1, w.dtype)])
+        words_bad += not np.array_equal(w, dst_bow.kf_words[d])
+        vec_err = max(vec_err, float(np.abs(src_bow.kf_bow[k] - dst_bow.kf_bow[d]).max()))
+
+    def postings(bow, idmap):
+        offsets, kfs = bow.inverted.csr()
+        words = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+        return {(int(w), idmap[int(k)]) for w, k in zip(words, kfs) if int(k) in idmap}
+
+    same_post = postings(src_bow, kmap) == postings(dst_bow, {d: d for d in kmap.values()})
+    return dict(keyframes=len(kmap), missing_in_saving_session=len(missing),
+                words_differing=words_bad, postings_equal=same_post, tfidf_max_abs_diff=vec_err,
+                ok=not missing and words_bad == 0 and same_post and vec_err <= 1e-6)
+
+
+def map_reuse_phase(dev, s5, frames, poses5):
+    """Phase 9, map reuse (the reference's ``--map-db`` workflow) on phase
+    5's System ``s5`` (shut down, its map kept), its ``frames`` and its
+    poses ``poses5``:
+    - save: the map in both schemas; the frame trajectory (TUM, KITTI) and
+      the keyframe trajectory, read back with the port's readers;
+    - load, per schema, into a fresh ``System(cfg, device=dev)``: native
+      columns equal up to id compaction (``native_map_diff``); the
+      reference schema's rotations within 1e-6 of the rotations of the
+      quaternions it stores (their distance to the saved rotations' SO(3)
+      projection is reported), translations within 1e-6, descriptor multisets and the
+      observation-count multiset equal (``ref_map_diff``); the rebuilt BoW
+      database equal to phase 5's (``bow_diff``);
+    - localize: mapping disabled, the tracker LOST, frames
+      ``MAP_REUSE_FRAMES`` at new timestamps, the native map frame by
+      frame, the reference-schema map through ``feed_sequence(depth=2)``:
+      relocalized within 3 frames, tracked >= 0.90 after it, the fused
+      path on >= 60 % of the pipelined run's tracked frames, keyframe and
+      landmark counts unchanged, ATE <= 0.05 m under phase 5's own Sim(3)
+      alignment applied unchanged, every kernel launched and K1/K2/K3 held
+      against their plain versions at these launches, no worker exception;
+    - resume from an autosave: session A maps frames 0-119 with a snapshot
+      every 5 keyframes; a fresh System loads the last snapshot, keeps
+      mapping, is set LOST and fed frames ``RESUME_FRAMES``: a snapshot was
+      written, tracked >= 0.90 after relocalization, the map grew, ATE <=
+      0.05 m under session A's alignment;
+    - viewers: ``export_html`` of the loaded map, ``SocketViewer``'s state
+      snapshot (the map's keyframe count) and frame PNG (decoded by the
+      port's own decoder), no socket opened.
+    Returns (summary dict, launch counts of the localization runs, of the
+    resumed session, kernel rows)."""
+    import tempfile
     import torch
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.module.tracking_module import TrackerState
+    from openvslam_tpu_torch.publish.html_viewer import export_html
+    from openvslam_tpu_torch.publish.socket_viewer import SocketViewer
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import evaluate
+    from openvslam_tpu_torch.utils.datasets import decode_png
+
+    t_phase = time.perf_counter()
+    cfg = system_config()
+    imgs, gt = frames
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    align5 = sim3_alignment(poses5, gt, evaluate)
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".cache")
+    os.makedirs(cache, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="map_reuse_", dir=cache)
+    path = {"native": os.path.join(tmp, "map_native.msg"),
+            "openvslam": os.path.join(tmp, "map_openvslam.msg")}
+    out = dict(frames=list(MAP_REUSE_FRAMES), resume_frames=list(RESUME_FRAMES))
+    fails = []
+
+    # ---- save: the map in both schemas, the trajectories
+    for fmt, p in path.items():
+        t = time.perf_counter()
+        s5.save_map_database(p, format=fmt)
+        out[f"save_ms_{fmt}"] = (time.perf_counter() - t) * 1e3
+        out[f"file_bytes_{fmt}"] = os.path.getsize(p)
+    tj = {n: os.path.join(tmp, n) for n in ("frames_tum.txt", "frames_kitti.txt", "kfs_tum.txt")}
+    s5.save_frame_trajectory(tj["frames_tum.txt"], "TUM")
+    s5.save_frame_trajectory(tj["frames_kitti.txt"], "KITTI")
+    s5.save_keyframe_trajectory(tj["kfs_tum.txt"], "TUM")
+    ts_c, poses_c, mask_c = s5.composed_poses()
+    out["frame_trajectory_readback"] = trajectory_readback(
+        poses_c[mask_c], ts_c[mask_c], tj["frames_tum.txt"], tj["frames_kitti.txt"])
+    ids5 = s5.map_db.valid_kf_ids()
+    out["keyframe_trajectory_readback"] = trajectory_readback(
+        s5.map_db.kf_pose_cw[ids5], s5.map_db.kf_timestamp[ids5], tj["kfs_tum.txt"])
+    for key in ("frame_trajectory_readback", "keyframe_trajectory_readback"):
+        if not out[key]["ok"]:
+            fails.append(f"{key} {out[key]}")
+
+    # ---- load, per schema, with the BoW rebuild
+    loaded = {}
+    for fmt, p in path.items():
+        s = System(cfg, device=dev)
+        sync()
+        t = time.perf_counter()
+        s.load_map_database(p)
+        sync()
+        out[f"load_ms_{fmt}"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        s.rebuild_bow_database()
+        sync()
+        out[f"bow_rebuild_ms_{fmt}"] = (time.perf_counter() - t) * 1e3
+        loaded[fmt] = s
+    nat, ref = loaded["native"], loaded["openvslam"]
+    diff = native_map_diff(s5.map_db, nat.map_db)
+    stale = diff.pop("stale_covis")
+    out["native_load"] = dict(keyframes=len(nat.map_db.valid_kf_ids()),
+                              landmarks=len(nat.map_db.valid_lm_ids()),
+                              columns_differing={k: v for k, v in diff.items() if v},
+                              saved_covis_entries_changed_by_recount=stale)
+    if any(diff.values()) or len(nat.map_db.valid_kf_ids()) != len(ids5):
+        fails.append(f"native load differs: {out['native_load']}")
+    out["reference_load"] = ref_map_diff(s5.map_db, ref.map_db)
+    r = out["reference_load"]
+    if not (r["rot_vs_quaternion"] <= 1e-6 and r["trans"] <= 1e-6
+            and r["desc_multiset_kfs_differing"] == 0 and r["obs_count_multiset_equal"]):
+        fails.append(f"reference-schema load differs: {r}")
+    for fmt, s in loaded.items():
+        row = bow_diff(s5.map_db, s5.global_optimizer.bow_db, s.global_optimizer.bow_db,
+                       compacted=fmt == "openvslam")
+        out[f"bow_{fmt}"] = row
+        if not row["ok"]:
+            fails.append(f"BoW rebuilt from the {fmt} map differs: {row}")
+    ms = {k: v for k, v in out.items() if k.endswith(("_ms_native", "_ms_openvslam"))}
+    log(f"Map reuse save/load: {', '.join(f'{k} {v:.1f}' for k, v in ms.items())} ms; "
+        f"files {out['file_bytes_native']} / {out['file_bytes_openvslam']} bytes; native "
+        f"{out['native_load']}; reference {r}; BoW {out['bow_native']} / {out['bow_openvslam']}; "
+        f"trajectories {out['frame_trajectory_readback']} {out['keyframe_trajectory_readback']}")
+
+    # ---- localize on the loaded maps
+    a, b = MAP_REUSE_FRAMES
+    counts_before = {}
+    for s in (nat, ref):
+        s.disable_mapping_module()
+        s.tracker.state = TrackerState.LOST
+        s.startup()
+        counts_before[id(s)] = (s.map_db.n_kfs, len(s.map_db.valid_lm_ids()))
+    cap = KernelCapture(s5.tracker.LOCAL_LM_CAP, k3_cols=2)
+    frame_ms_, poses_nat = [], []
+    try:
+        sync()
+        kernels.reset_launch_counts()
+        for i in range(a, b):
+            t = time.perf_counter()
+            poses_nat.append(nat.feed_monocular_frame(imgs[i], 1000.0 + i / 20.0))
+            sync()
+            frame_ms_.append((time.perf_counter() - t) * 1e3)
+        counts_nat = kernels.launch_counts()
+        out_ref = list(ref.feed_sequence(((imgs[i], 1000.0 + i / 20.0) for i in range(a, b)),
+                                         depth=2))
+        sync()
+        counts = kernels.launch_counts()
+    finally:
+        cap.restore()
+    counts_ref = {k: counts[k] - counts_nat[k] for k in counts}
+    poses_ref = [p for _, p in out_ref]
+    rows = cap.check("Map reuse")
+    for tag, s, poses in (("native", nat, poses_nat), ("openvslam", ref, poses_ref)):
+        tr = np.array([p is not None for p in poses])
+        first = int(np.argmax(tr)) if tr.any() else -1
+        share = float(tr[first:].mean()) if first >= 0 else 0.0
+        ate = ate_under(align5, poses, gt[a:b])
+        st = s.stats()
+        same_map = counts_before[id(s)] == (s.map_db.n_kfs, len(s.map_db.valid_lm_ids()))
+        row = dict(first_pose=first, tracked_share_after=share, ate_m_under_phase5_sim3=ate,
+                   fused_frames=s._fused_frames, tracked=int(tr.sum()),
+                   map_unchanged=same_map, worker_exceptions=st["worker_exceptions"],
+                   reloc_attempts=st["reloc_attempts"])
+        if tag == "native":
+            after = frame_ms_[first + 1:] if first >= 0 else []
+            row.update(reloc_ms_per_frame=frame_ms_[:first + 1] if first >= 0 else frame_ms_,
+                       frame_ms_median=float(np.median(after)) if after else None,
+                       frame_ms_p90=float(np.percentile(after, 90)) if after else None,
+                       launches=counts_nat)
+        else:
+            row.update(fused_share=s._fused_frames / max(int(tr.sum()), 1), launches=counts_ref,
+                       pipe_finish_ms_median=float(np.median(s.pipe_stats["finish_s"]) * 1e3)
+                       if s.pipe_stats["finish_s"] else None)
+        out[f"localize_{tag}"] = row
+        how = "frame by frame" if tag == "native" else "feed_sequence depth 2"
+        log(f"Map reuse localization ({tag}, {how}): {row}")
+        if not 0 <= first <= 2:
+            fails.append(f"{tag}: not relocalized within 3 frames (first pose {first})")
+        if share < 0.90:
+            fails.append(f"{tag}: tracked share {share:.3f} below 0.90 after relocalization")
+        if not same_map:
+            fails.append(f"{tag}: the map changed in localization mode")
+        if not ate <= 0.05:
+            fails.append(f"{tag}: ATE {ate:.4f} m under phase 5's alignment above 0.05 m")
+        if st["worker_exceptions"]:
+            fails.append(f"{tag}: {st['worker_exceptions']} worker exceptions")
+        if tag == "openvslam" and row["fused_share"] < 0.60:
+            fails.append(f"{tag}: fused path on {row['fused_share']:.2f} of tracked frames < 0.60")
+    if min(counts.values()) == 0:
+        fails.append(f"map reuse did not launch every kernel: {counts}")
+
+    # ---- viewers on the localizing System
+    html = export_html(nat.map_publisher, os.path.join(tmp, "map.html"))
+    viewer = SocketViewer(nat)
+    snap = viewer.state_snapshot()
+    png = viewer.frame_png()
+    img = decode_png(png) if png is not None else None
+    out["viewers"] = dict(html_bytes=os.path.getsize(html), snapshot_kfs=len(snap["kf_centers"]),
+                          png_shape=None if img is None else list(img.shape))
+    if (snap["kf_centers"] and len(snap["kf_centers"]) != len(nat.map_db.valid_kf_ids())) or \
+            img is None or img.shape != (cfg.camera.rows, cfg.camera.cols, 3):
+        fails.append(f"viewers: {out['viewers']}")
+    for s in (nat, ref):
+        s.shutdown()
+
+    # ---- resume from an autosave
+    snap_path = os.path.join(tmp, "autosave.msg")
+    sa = System(cfg, device=dev)
+    sa.enable_autosave(snap_path, every_n_keyframes=5)
+    sa.startup()
+    pa = [sa.feed_monocular_frame(imgs[i], i / 20.0) for i in range(RESUME_MAP_FRAMES)]
+    sa.join_autosave()
+    sa.shutdown()
+    written = os.path.exists(snap_path)
+    align_a = sim3_alignment(pa, gt[:RESUME_MAP_FRAMES], evaluate)
+    sb = System(cfg, device=dev)
+    if written:
+        sb.load_map_database(snap_path)
+    kfs_restored = len(sb.map_db.valid_kf_ids())
+    sb.tracker.state = TrackerState.LOST
+    sb.startup()
+    c0, c1 = RESUME_FRAMES
+    sync()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    pb = [sb.feed_monocular_frame(imgs[i], 2000.0 + i / 20.0) for i in range(c0, c1)]
+    sync()
+    counts_resume = kernels.launch_counts()
+    wall_b = time.perf_counter() - t
+    sb.shutdown()
+    tr = np.array([p is not None for p in pb])
+    first = int(np.argmax(tr)) if tr.any() else -1
+    share = float(tr[first:].mean()) if first >= 0 else 0.0
+    ate_b = ate_under(align_a, pb, gt[c0:c1])
+    st_a, st_b = sa.stats(), sb.stats()
+    out["resume"] = dict(snapshot_written=written, session_a_keyframes=st_a["num_keyframes"],
+                         keyframes_restored=kfs_restored, keyframes_after=st_b["num_keyframes"],
+                         first_pose=first, tracked_share_after=share,
+                         ate_m_under_session_a_sim3=ate_b, wall_s=wall_b,
+                         worker_exceptions=st_a["worker_exceptions"] + st_b["worker_exceptions"],
+                         launches=counts_resume)
+    log(f"Map reuse resume from autosave: {out['resume']}")
+    if not written:
+        fails.append("resume: no autosave snapshot was written")
+    if first < 0 or share < 0.90:
+        fails.append(f"resume: tracked share {share:.3f} after relocalization (first {first})")
+    if not st_b["num_keyframes"] > kfs_restored:
+        fails.append("resume: the map did not grow beyond the snapshot")
+    if not ate_b <= 0.05:
+        fails.append(f"resume: ATE {ate_b:.4f} m under session A's alignment above 0.05 m")
+    if out["resume"]["worker_exceptions"]:
+        fails.append("resume: worker exceptions")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"Map reuse: phase wall {out['wall_s']:.1f}s; launches localize {counts}, resume "
+        f"{counts_resume}")
+    for name in os.listdir(tmp):
+        os.remove(os.path.join(tmp, name))
+    os.rmdir(tmp)
+    if fails:
+        fail("Map reuse: " + "; ".join(fails))
+    launches = {k: counts[k] + counts_resume[k] for k in counts}
+    return out, launches, rows
+
+
+def main() -> int:
+    import faulthandler
+
+    import torch
+
+    # a fault in native code leaves every thread's Python stack on stderr
+    # (the run still fails)
+    faulthandler.enable(all_threads=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
@@ -2446,7 +2928,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 5
     sys_frames = system_frames(system_config().camera)
-    sys_out, sys_counts = system_phase(dev, frames=sys_frames)
+    sys_out, sys_counts, sys_s, sys_poses = system_phase(dev, frames=sys_frames)
 
     # ---------------------------------------------------------------- 6
     from openvslam_tpu_torch.config import Config
@@ -2458,7 +2940,10 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 5b
     async_out, async_counts = async_system_phase(dev, sys_frames)
-    del sys_frames
+
+    # ---------------------------------------------------------------- 9
+    map_out, map_counts, map_rows = map_reuse_phase(dev, sys_s, sys_frames, sys_poses)
+    del sys_frames, sys_s
 
     # ---------------------------------------------------------------- 6b
     lap = LapRender(Config.from_dict(loop_config_dict()).camera, ASYNC_LOOP_FRAMES)
@@ -2484,9 +2969,9 @@ def main() -> int:
     # ---------------------------------------------------------------- out
     kernels_out = []
     depth_counts = dict(stereo_counts, rgbd=rgbd_counts, stereo_loop=sloop_counts,
-                        fisheye=fish_counts, equirect=eq_counts)
+                        fisheye=fish_counts, equirect=eq_counts, map_reuse=map_counts)
     for key, r in report.items():
-        shapes = (r["shapes"] + [stereo_rows[key], rgbd_rows[key], fish_rows[key]]
+        shapes = (r["shapes"] + [stereo_rows[key], rgbd_rows[key], fish_rows[key], map_rows[key]]
                   + ([eq_rows[key]] if key in eq_rows else []))
         kernels_out.append(dict(
             r, shapes=shapes, max_abs_err=max(x["max_abs_err"] for x in shapes),
@@ -2540,6 +3025,11 @@ def main() -> int:
                    equirect_tracked_share=eq_out["tracked_share_after_first"],
                    equirect_ate_sim3_m=eq_out["ate_sim3_gated_m"],
                    equirect_track_ms_median=eq_out["track_ms_median"],
+                   map_reuse_localize_ms_median=map_out["localize_native"]["frame_ms_median"],
+                   map_reuse_ate_native_m=map_out["localize_native"]["ate_m_under_phase5_sim3"],
+                   map_reuse_ate_openvslam_m=map_out["localize_openvslam"]["ate_m_under_phase5_sim3"],
+                   map_reuse_resume_ate_m=map_out["resume"]["ate_m_under_session_a_sim3"],
+                   map_reuse_wall_s=map_out["wall_s"],
                    seconds=time.perf_counter() - T0)
     print(json.dumps({"system": sys_out}), flush=True)
     print(json.dumps({"loop": loop_out}), flush=True)
@@ -2550,6 +3040,7 @@ def main() -> int:
     print(json.dumps({"stereo_loop": sloop_out}), flush=True)
     print(json.dumps({"fisheye": fish_out}), flush=True)
     print(json.dumps({"equirect": eq_out}), flush=True)
+    print(json.dumps({"map_reuse": map_out}), flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(card, flush=True)

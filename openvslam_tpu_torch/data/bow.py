@@ -7,14 +7,15 @@
 - ``TreeVocabulary``: a k-branch / L-level DBoW2-style tree, descended
   greedily, with the direct-index-at-level gate.
 
-Both load from the JAX package's npz format.  The default vocabularies are
-the package's own copies in ``assets/`` (one per descriptor pattern); a
-missing asset raises.  Word assignment runs on the device the caller names
-(the vocabulary keeps one copy of its centres per device); the database is
-host numpy.
-
-Not ported: vocabulary training and the ORB-SLAM text / DBoW2 binary
-readers and writers.
+Both train from descriptors (k-medians with a seeded numpy generator, the
+JAX package's schedule, so the same seed gives the same vocabulary) and
+load from the JAX package's npz format; a tree vocabulary also reads and
+writes the ORB-SLAM text format (``ORBvoc.txt``) and the DBoW2 binary format
+(``orb_vocab.dbow2``).  The default vocabularies are the package's own
+copies in ``assets/`` (one per descriptor pattern); a missing asset raises
+and nothing is trained on the way.  Word assignment runs on the device the
+caller names (the vocabulary keeps one copy of its centres per device); the
+database is host numpy.
 """
 from __future__ import annotations
 
@@ -79,6 +80,38 @@ class Vocabulary:
             if "tree_k" in z:
                 return TreeVocabulary._from_npz(z)
             return cls(z["centers"], z["idf"])
+
+    @classmethod
+    def train(cls, descs_i8: np.ndarray, num_words: int = 1024, iters: int = 8,
+              seed: int = 0) -> "Vocabulary":
+        """k-medians on binary descriptors: assignment by Hamming distance,
+        centres updated by per-bit majority vote; idf from the training
+        distribution."""
+        rng = np.random.default_rng(seed)
+        n = descs_i8.shape[0]
+        if n < num_words:
+            raise ValueError("need more training descriptors than words")
+        centers = descs_i8[rng.choice(n, num_words, replace=False)].astype(np.int8)
+        d = descs_i8.astype(np.int32)
+        for _ in range(iters):
+            # Hamming via dot: d and centers in {0,1}
+            dots = d @ centers.astype(np.int32).T
+            na = d.sum(-1, keepdims=True)
+            nb = centers.astype(np.int32).sum(-1)[None, :]
+            assign = (na + nb - 2 * dots).argmin(-1)
+            for w in range(num_words):
+                members = d[assign == w]
+                if len(members) == 0:
+                    centers[w] = d[rng.integers(0, n)]
+                else:
+                    centers[w] = (members.mean(0) > 0.5).astype(np.int8)
+        dots = d @ centers.astype(np.int32).T
+        na = d.sum(-1, keepdims=True)
+        nb = centers.astype(np.int32).sum(-1)[None, :]
+        assign = (na + nb - 2 * dots).argmin(-1)
+        counts = np.bincount(assign, minlength=num_words).astype(np.float64)
+        idf = np.log(n / np.maximum(counts, 1.0)).astype(np.float32)
+        return cls(centers, idf)
 
 
 class TreeVocabulary:
@@ -156,14 +189,222 @@ class TreeVocabulary:
             raise ValueError(f"{path} holds a flat vocabulary")
         return v
 
+    @classmethod
+    def train(cls, descs_i8: np.ndarray, k: int = 8, levels: int = 3, iters: int = 8,
+              seed: int = 0) -> "TreeVocabulary":
+        """Recursive k-medians: cluster into k groups, recurse per branch
+        (DBoW2's training scheme on binary descriptors); idf from the
+        training descriptors' leaf words."""
+        rng = np.random.default_rng(seed)
+        d = descs_i8.astype(np.int32)
+        level_centers = [np.zeros((k ** (l + 1), 256), np.int8) for l in range(levels)]
+        level_valid = [np.zeros(k ** (l + 1), bool) for l in range(levels)]
+
+        def kmedians(sub: np.ndarray):
+            """(n,256) -> (centres (<=k,256) int8, assignment (n,))"""
+            n = sub.shape[0]
+            kk = min(k, n)
+            centers = sub[rng.choice(n, kk, replace=False)]
+            for _ in range(iters):
+                dist = sub.sum(-1, keepdims=True) + centers.sum(-1)[None] - 2 * (sub @ centers.T)
+                assign = dist.argmin(-1)
+                for w in range(kk):
+                    members = sub[assign == w]
+                    if len(members):
+                        centers[w] = (members.mean(0) > 0.5).astype(np.int32)
+                    else:
+                        centers[w] = sub[rng.integers(0, n)]
+            dist = sub.sum(-1, keepdims=True) + centers.sum(-1)[None] - 2 * (sub @ centers.T)
+            return centers.astype(np.int8), dist.argmin(-1)
+
+        def build(node: int, sub: np.ndarray, level: int):
+            if level == levels or sub.shape[0] == 0:
+                return
+            centers, assign = kmedians(sub)
+            for j in range(centers.shape[0]):
+                level_centers[level][node * k + j] = centers[j]
+                level_valid[level][node * k + j] = True
+                build(node * k + j, sub[assign == j], level + 1)
+
+        build(0, d, 0)
+        # a valid interior node needs a valid child down to the leaves, else
+        # greedy descent dead-ends: chain its own centre down
+        for l in range(levels - 1):
+            for node in np.nonzero(level_valid[l])[0]:
+                lo = node * k
+                if not level_valid[l + 1][lo:lo + k].any():
+                    level_centers[l + 1][lo] = level_centers[l][node]
+                    level_valid[l + 1][lo] = True
+        vocab = cls(level_centers, level_valid, k)
+        words = vocab.assign(descs_i8.astype(np.int8), np.ones(len(descs_i8), bool))
+        counts = np.bincount(words, minlength=vocab.num_words).astype(np.float64)
+        vocab.idf = np.log(len(descs_i8) / np.maximum(counts, 1.0)).astype(np.float32)
+        return vocab
+
 
 def load_vocabulary(path: str):
-    """Load a flat or tree vocabulary from the JAX package's npz format."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only npz vocabularies are ported (not the ORB-SLAM text or "
-            "DBoW2 binary formats)")
+    """A vocabulary from ``.npz`` (flat or tree, the JAX package's format),
+    an ORB-SLAM text file (``.txt``; ``load_orbslam_text``) or a DBoW2
+    binary file (``.dbow2`` / ``.bin``; ``load_dbow2_binary``)."""
+    if path.endswith(".txt"):
+        return load_orbslam_text(path)
+    if path.endswith((".dbow2", ".bin")):
+        return load_dbow2_binary(path)
     return Vocabulary.load(path)
+
+
+# ---------------------------------------------------------------------------
+# ORB-SLAM / DBoW2 text vocabulary format (ORB-SLAM2's ``ORBvoc.txt``),
+# DBoW2's TemplatedVocabulary::loadFromTextFile / saveToTextFile:
+#
+#   line 1:  k L scoring_type weighting_type
+#   then one line per non-root node, parents before children:
+#            <parent_node_id> <is_leaf 0|1> <32 descriptor bytes> <weight>
+#
+# Node ids are implicit (root 0, then one per line).  A leaf above the
+# deepest level is chained straight down (the trainer's convention) so
+# greedy descent ends at a bottom-level word.  Word ids are level-major slot
+# ids, not DBoW2's: quantization does not depend on the labels.
+# ---------------------------------------------------------------------------
+def _desc_bytes_to_bits(vals) -> np.ndarray:
+    return np.unpackbits(np.asarray(vals, np.uint8), bitorder="little").astype(np.int8)
+
+
+def _bits_to_desc_bytes(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(bits.astype(np.uint8), bitorder="little")
+
+
+class _TreeBuilder:
+    """Places nodes given parents-first (parent id, bits, is_leaf, weight)
+    into the level-major arrays, then chains early leaves to the bottom."""
+
+    def __init__(self, k: int, levels: int):
+        self.k, self.levels = k, levels
+        self.centers = [np.zeros((k ** (l + 1), 256), np.int8) for l in range(levels)]
+        self.valid = [np.zeros(k ** (l + 1), bool) for l in range(levels)]
+        self.level = {0: -1}
+        self.slot = {0: 0}
+        self.n_children = {0: 0}
+        self.leaves = []
+        self.next_id = 1
+
+    def add(self, pid: int, bits: np.ndarray, is_leaf: bool, weight: float):
+        lvl = self.level[pid] + 1
+        rank = self.n_children[pid]
+        if rank >= self.k:
+            raise ValueError(f"node {pid} has more than k={self.k} children")
+        if lvl >= self.levels:
+            raise ValueError(f"node {self.next_id} lies below the vocabulary's "
+                             f"{self.levels} levels")
+        slot = self.slot[pid] * self.k + rank
+        self.n_children[pid] = rank + 1
+        self.centers[lvl][slot] = bits
+        self.valid[lvl][slot] = True
+        self.level[self.next_id] = lvl
+        self.slot[self.next_id] = slot
+        self.n_children[self.next_id] = 0
+        if is_leaf:
+            self.leaves.append((lvl, slot, weight))
+        self.next_id += 1
+
+    def vocabulary(self) -> "TreeVocabulary":
+        idf = np.ones(self.k ** self.levels, np.float32)
+        for lvl, slot, weight in self.leaves:
+            s_ = slot
+            for l in range(lvl + 1, self.levels):
+                child = s_ * self.k
+                self.centers[l][child] = self.centers[l - 1][s_]
+                self.valid[l][child] = True
+                s_ = child
+            idf[s_] = weight
+        return TreeVocabulary(self.centers, self.valid, self.k, idf)
+
+
+def _tree_nodes(vocab: "TreeVocabulary"):
+    """(parent id, level, slot, is_leaf, weight) of every non-root node of a
+    tree vocabulary, breadth first, with ids assigned in that order."""
+    k, levels = vocab.k, vocab.levels
+    ids = {(-1, 0): 0}
+    for lvl in range(levels):
+        for slot in np.nonzero(vocab.level_valid[lvl])[0]:
+            slot = int(slot)
+            parent = (lvl - 1, slot // k) if lvl else (-1, 0)
+            is_leaf = (lvl == levels - 1
+                       or not vocab.level_valid[lvl + 1][slot * k:slot * k + k].any())
+            weight = float(vocab.idf[slot]) if lvl == levels - 1 else 0.0
+            yield ids[parent], lvl, slot, is_leaf, weight
+            ids[(lvl, slot)] = len(ids)
+
+
+def load_orbslam_text(path: str) -> "TreeVocabulary":
+    with open(path) as f:
+        header = f.readline().split()
+        tb = _TreeBuilder(int(header[0]), int(header[1]))
+        for line in f:
+            parts = line.split()
+            if parts:
+                tb.add(int(parts[0]), _desc_bytes_to_bits([int(v) for v in parts[2:34]]),
+                       bool(int(parts[1])), float(parts[34]))
+    return tb.vocabulary()
+
+
+def save_orbslam_text(vocab: "TreeVocabulary", path: str, scoring: int = 0,
+                      weighting: int = 0):
+    """Write a tree vocabulary in the text format above."""
+    with open(path, "w") as f:
+        f.write(f"{vocab.k} {vocab.levels} {scoring} {weighting}\n")
+        for pid, lvl, slot, is_leaf, w in _tree_nodes(vocab):
+            byts = _bits_to_desc_bytes(vocab.level_centers[lvl][slot])
+            f.write(f"{pid} {int(is_leaf)} " + " ".join(str(int(v)) for v in byts) + f" {w}\n")
+
+
+# ---------------------------------------------------------------------------
+# DBoW2 binary vocabulary format (the reference ships ``orb_vocab.dbow2``):
+# the ORB-SLAM2 saveToBinaryFile / loadFromBinaryFile layout, little-endian:
+#
+#   uint32 nb_nodes (including the root), uint32 size_node (41 for ORB)
+#   int32 k, int32 L, int32 scoring_type, int32 weighting_type
+#   one record per non-root node, parents before children:
+#     int32 parent id, 32 x uint8 descriptor bytes, float32 weight,
+#     uint8 is_leaf
+# ---------------------------------------------------------------------------
+_DBOW2_NODE = np.dtype([("parent", "<i4"), ("desc", "u1", 32), ("weight", "<f4"),
+                        ("is_leaf", "u1")])
+
+
+def load_dbow2_binary(path: str) -> "TreeVocabulary":
+    with open(path, "rb") as f:
+        nb_nodes, size_node = np.frombuffer(f.read(8), "<u4")
+        k, levels = (int(v) for v in np.frombuffer(f.read(16), "<i4")[:2])
+        if size_node != _DBOW2_NODE.itemsize:
+            raise ValueError(f"{path}: size_node={size_node} != {_DBOW2_NODE.itemsize} — "
+                             "not a 256-bit ORB DBoW2 binary vocabulary")
+        payload = f.read()
+    expect = (int(nb_nodes) - 1) * int(size_node)
+    if len(payload) != expect:
+        raise ValueError(f"{path}: payload is {len(payload)} bytes, expected {expect} "
+                         "((nb_nodes-1) * size_node)")
+    tb = _TreeBuilder(k, levels)
+    for nd in np.frombuffer(payload, _DBOW2_NODE):
+        tb.add(int(nd["parent"]), _desc_bytes_to_bits(nd["desc"]), bool(nd["is_leaf"]),
+               float(nd["weight"]))
+    return tb.vocabulary()
+
+
+def save_dbow2_binary(vocab: "TreeVocabulary", path: str, scoring: int = 0,
+                      weighting: int = 0):
+    records = []
+    for pid, lvl, slot, is_leaf, w in _tree_nodes(vocab):
+        rec = np.zeros((), _DBOW2_NODE)
+        rec["parent"] = pid
+        rec["is_leaf"] = int(is_leaf)
+        rec["desc"] = _bits_to_desc_bytes(vocab.level_centers[lvl][slot])
+        rec["weight"] = w
+        records.append(rec)
+    with open(path, "wb") as f:
+        f.write(np.asarray([len(records) + 1, _DBOW2_NODE.itemsize], "<u4").tobytes())
+        f.write(np.asarray([vocab.k, vocab.levels, scoring, weighting], "<i4").tobytes())
+        f.write(np.stack(records).tobytes())
 
 
 def default_vocabulary(num_words: int = 1024, pattern: str = "learned") -> Vocabulary:

@@ -16,14 +16,16 @@ BA (``make_global_ba``, PCG over the reduced camera system).
   ``tests/test_torch_mapping.py``, ``tests/test_torch_stereo.py`` and
   ``tests/test_torch_fisheye_equirect.py`` hold them against
   ``torch.func.jacfwd`` of the residual.
-* Per-observation blocks are summed with ``index_add_`` (on CUDA in no
-  fixed order, so card and CPU agree to rounding).
+* Per-observation blocks are summed per camera and per landmark in one
+  fixed order on every device (``segment_sum``): a run on the card
+  repeats, and card and CPU agree to rounding.
 * Landmark blocks are 3x3, eliminated in parallel (batched inverse); the
   reduced camera system S (6C x 6C) is ONE matmul, S = blkdiag(Hcc) - Y W^T
   over the dense (L,C,6,3) cross-block tensor.
 * The 5 + 10 iterations are a Python loop whose accept decision and damping
   stay 0-d tensors (``torch.where``), and the solves are the ``_ex`` forms:
-  nothing reads a value back to the host until the caller does.
+  past the sums' grid widths, read once before the iterations, nothing
+  reads a value back to the host until the caller does.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from . import residuals as R
+from .segment_sum import segment_sums
 
 _EPS = 1e-9
 
@@ -136,10 +139,11 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: boo
     ``second_iters`` more."""
     chi2_thr = R.CHI2_3D if stereo and not multicam else R.CHI2_2D
 
-    def lm_phase(p: BAProblem, active: torch.Tensor, iters: int):
+    def lm_phase(p: BAProblem, active: torch.Tensor, iters: int, sums):
         dev, dt = p.T_cw.device, p.T_cw.dtype
         C, L = p.T_cw.shape[0], p.X.shape[0]
         oc, ol = p.obs_cam.to(torch.int64), p.obs_lm.to(torch.int64)
+        sum_c, sum_l, sum_cl = sums
         inv_s2 = 1.0 / torch.clamp(p.obs_sigma2, min=1e-12)
         obs_ok_static = active & p.obs_mask & p.cam_valid[oc] & p.lm_valid[ol]
         cam_free = p.cam_opt & p.cam_valid
@@ -147,17 +151,12 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: boo
         eyec = torch.eye(6, dtype=dt, device=dev)
         eyel = torch.eye(3, dtype=dt, device=dev)
         diag = torch.arange(C, device=dev)
-        pair = ol * C + oc
 
         def cost_of(T, X):
             r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv, multicam)
             c2 = (r * r).sum(-1) * inv_s2
             w = (obs_ok_static & ok).to(dt)
             return (_rho(c2, chi2_thr) * w).sum(), c2, ok
-
-        def add(n, idx, blocks):
-            return torch.zeros((n,) + blocks.shape[1:], dtype=dt, device=dev).index_add_(
-                0, idx, blocks)
 
         T, X = p.T_cw, p.X
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
@@ -170,11 +169,11 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: boo
             # fixed cameras keep their Jacobians out of the system (they
             # still constrain the landmarks)
             Jc = Jc * cam_free[oc][:, None, None]
-            Hcc = add(C, oc, torch.einsum("odi,odj,o->oij", Jc, Jc, w))
-            Hll = add(L, ol, torch.einsum("odi,odj,o->oij", Jl, Jl, w))
-            gc = add(C, oc, torch.einsum("odi,od,o->oi", Jc, r, w))
-            gl = add(L, ol, torch.einsum("odi,od,o->oi", Jl, r, w))
-            Wt = add(L * C, pair, torch.einsum("odi,odj,o->oij", Jc, Jl, w)).view(L, C, 6, 3)
+            Hcc = sum_c(torch.einsum("odi,odj,o->oij", Jc, Jc, w))
+            Hll = sum_l(torch.einsum("odi,odj,o->oij", Jl, Jl, w))
+            gc = sum_c(torch.einsum("odi,od,o->oi", Jc, r, w))
+            gl = sum_l(torch.einsum("odi,od,o->oi", Jl, r, w))
+            Wt = sum_cl(torch.einsum("odi,odj,o->oij", Jc, Jl, w)).view(L, C, 6, 3)
             # damping (LM, multiplicative on block diagonals)
             Hcc_d = Hcc + lam * Hcc * eyec + 1e-8 * eyec
             Hll_d = Hll + lam * Hll * eyel + 1e-8 * eyel
@@ -211,10 +210,14 @@ def make_local_ba(cam, first_iters: int = 5, second_iters: int = 10, stereo: boo
         return T, X, c2, ok, cost
 
     def optimize(p: BAProblem) -> BAResult:
+        C, L = p.T_cw.shape[0], p.X.shape[0]
+        oc, ol = p.obs_cam.to(torch.int64), p.obs_lm.to(torch.int64)
+        keep = p.obs_mask & p.cam_valid[oc] & p.lm_valid[ol]
+        sums = segment_sums([(oc, C, keep), (ol, L, keep), (ol * C + oc, L * C, keep)])
         active = p.obs_mask
-        T, X, c2, ok, _ = lm_phase(p, active, first_iters)
+        T, X, c2, ok, _ = lm_phase(p, active, first_iters, sums)
         active = active & ok & (c2 < chi2_thr)
-        T, X, c2, ok, cost = lm_phase(p._replace(T_cw=T, X=X), active, second_iters)
+        T, X, c2, ok, cost = lm_phase(p._replace(T_cw=T, X=X), active, second_iters, sums)
         return BAResult(T, X, active & ok & (c2 < chi2_thr), cost)
 
     return optimize
@@ -232,7 +235,7 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
 
     Same problem struct as local BA; the reduced camera system is never
     formed: each PCG step applies S x = Hcc x - W (Hll^-1 (W^T x)) with
-    ``index_add_`` sums over the observations, preconditioned by the
+    fixed-order sums over the observations, preconditioned by the
     inverse camera blocks.  Gauge: cam_opt False for the origin keyframe.
     Like local BA, the iterations are Python loops over 0-d tensors and
     nothing is read back to the host inside the solve."""
@@ -248,16 +251,13 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
         obs_ok_static = p.obs_mask & p.cam_valid[oc] & p.lm_valid[ol]
         eyec = torch.eye(6, dtype=dt, device=dev)
         eyel = torch.eye(3, dtype=dt, device=dev)
+        sum_c, sum_l = segment_sums([(oc, C, obs_ok_static), (ol, L, obs_ok_static)])
 
         def cost_of(T, X):
             r, ok, _ = reprojection_residuals(cam, T, X, oc, ol, p.obs_uv, multicam)
             c2 = (r * r).sum(-1) * inv_s2
             w = (obs_ok_static & ok).to(dt)
             return (_rho(c2, chi2_thr) * w).sum(), c2, ok
-
-        def add(n, idx, blocks):
-            return torch.zeros((n,) + blocks.shape[1:], dtype=dt, device=dev).index_add_(
-                0, idx, blocks)
 
         T, X = p.T_cw, p.X
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
@@ -268,10 +268,10 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
             c2 = (r * r).sum(-1) * inv_s2
             w = R.huber_weight(c2, chi2_thr) * inv_s2 * (obs_ok_static & ok).to(dt)
             Jc = Jc * cam_free[oc][:, None, None]
-            Hcc = add(C, oc, torch.einsum("odi,odj,o->oij", Jc, Jc, w))
-            Hll = add(L, ol, torch.einsum("odi,odj,o->oij", Jl, Jl, w))
-            gc = add(C, oc, torch.einsum("odi,od,o->oi", Jc, r, w))
-            gl = add(L, ol, torch.einsum("odi,od,o->oi", Jl, r, w))
+            Hcc = sum_c(torch.einsum("odi,odj,o->oij", Jc, Jc, w))
+            Hll = sum_l(torch.einsum("odi,odj,o->oij", Jl, Jl, w))
+            gc = sum_c(torch.einsum("odi,od,o->oi", Jc, r, w))
+            gl = sum_l(torch.einsum("odi,od,o->oi", Jl, r, w))
             Hcc_d = Hcc + lam * Hcc * eyec + 1e-8 * eyec
             Hll_d = Hll + lam * Hll * eyel + 1e-8 * eyel
             Hll_d = torch.where(p.lm_valid[:, None, None], Hll_d, eyel)
@@ -280,12 +280,12 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
             Wo = torch.einsum("odi,odj,o->oij", Jc, Jl, w)
 
             def S_apply(x):
-                u = add(L, ol, torch.einsum("oij,oi->oj", Wo, x[oc]))
+                u = sum_l(torch.einsum("oij,oi->oj", Wo, x[oc]))
                 y = torch.einsum("lkm,lm->lk", Hll_inv, u)
-                z = add(C, oc, torch.einsum("oij,oj->oi", Wo, y[ol]))
+                z = sum_c(torch.einsum("oij,oj->oi", Wo, y[ol]))
                 return torch.einsum("cij,cj->ci", Hcc_d, x) - z
 
-            rhs = (-gc + add(C, oc, torch.einsum(
+            rhs = (-gc + sum_c(torch.einsum(
                 "oij,oj->oi", Wo, torch.einsum("lkm,lm->lk", Hll_inv, gl)[ol]))) * free6
             Minv = torch.linalg.inv_ex(torch.where(cam_free[:, None, None], Hcc_d, eyec)).inverse
             x = torch.zeros((C, 6), dtype=dt, device=dev)
@@ -302,7 +302,7 @@ def make_global_ba(cam, iters: int = 10, cg_iters: int = 40, stereo: bool = Fals
                 pv = z + rz_new / torch.clamp(rz, min=1e-12) * pv
                 rz = rz_new
             dxc = x * free6
-            u = add(L, ol, torch.einsum("oij,oi->oj", Wo, dxc[oc]))
+            u = sum_l(torch.einsum("oij,oi->oj", Wo, dxc[oc]))
             dxl = -torch.einsum("lkm,lm->lk", Hll_inv, gl + u) * p.lm_valid[:, None]
 
             T_new = R.perturb_pose(dxc, T)

@@ -13,6 +13,8 @@
   keyframes, and such a truncated CG amplifies rounding, so in float32 the
   card's and the CPU's solves of one 69-node loop ended 7e-5 apart in pose
   and 0.5 % apart in cost.
+* the per-edge blocks are summed per vertex in one fixed order on every
+  device (``segment_sum``), so a run on the card repeats.
 
 Each iteration's accept decision and damping stay 0-d tensors: nothing is
 read back to the host inside the solve.  The caller moves landmarks
@@ -26,6 +28,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..ops import sim3
+from .segment_sum import segment_sums
 
 
 class PoseGraphProblem(NamedTuple):
@@ -80,9 +83,7 @@ def make_pose_graph_optimizer(iters: int = 20, cg_iters: int = 50, fix_scale: bo
             r = residual(R, t, s)
             return ((r * r).sum(-1) * w).sum()
 
-        def add(idx, blocks):
-            return torch.zeros((N,) + blocks.shape[1:], dtype=dt, device=dev).index_add_(
-                0, idx, blocks)
+        sum_i, sum_j = segment_sums([(ei, N, p.e_mask != 0), (ej, N, p.e_mask != 0)])
 
         R, t, s = p.R.to(dt), p.t.to(dt), p.s.to(dt)
         lam = torch.tensor(1e-4, dtype=dt, device=dev)
@@ -90,10 +91,10 @@ def make_pose_graph_optimizer(iters: int = 20, cg_iters: int = 50, fix_scale: bo
         for _ in range(iters):
             r = residual(R, t, s)
             Ji, Jj = _edge_jacobians(z7, z7, R[ei], t[ei], s[ei], R[ej], t[ej], s[ej], *Sm)
-            g = (add(ei, torch.einsum("edk,ed,e->ek", Ji, r, w))
-                 + add(ej, torch.einsum("edk,ed,e->ek", Jj, r, w)))
-            Hii = (add(ei, torch.einsum("edk,edl,e->ekl", Ji, Ji, w))
-                   + add(ej, torch.einsum("edk,edl,e->ekl", Jj, Jj, w)))
+            g = (sum_i(torch.einsum("edk,ed,e->ek", Ji, r, w))
+                 + sum_j(torch.einsum("edk,ed,e->ek", Jj, r, w)))
+            Hii = (sum_i(torch.einsum("edk,edl,e->ekl", Ji, Ji, w))
+                   + sum_j(torch.einsum("edk,edl,e->ekl", Jj, Jj, w)))
             damp = lam * Hii * eye7 + 1e-8 * eye7
             Hii_d = Hii + damp
             if fix_scale:
@@ -104,8 +105,8 @@ def make_pose_graph_optimizer(iters: int = 20, cg_iters: int = 50, fix_scale: bo
             def H_apply(x):
                 y = (torch.einsum("edk,ek->ed", Ji, x[ei])
                      + torch.einsum("edk,ek->ed", Jj, x[ej])) * w[:, None]
-                out = (add(ei, torch.einsum("edk,ed->ek", Ji, y))
-                       + add(ej, torch.einsum("edk,ed->ek", Jj, y)))
+                out = (sum_i(torch.einsum("edk,ed->ek", Ji, y))
+                       + sum_j(torch.einsum("edk,ed->ek", Jj, y)))
                 return (out + torch.einsum("nkl,nl->nk", damp, x)) * proj
 
             rhs = -g * proj

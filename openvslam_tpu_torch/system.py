@@ -3,11 +3,13 @@
 mapping and global optimization modules, and exposes startup, shutdown,
 ``feed_monocular_frame``, ``feed_stereo_frame``, ``feed_RGBD_frame``, the
 pipelined ``feed_sequence``, the mapping and loop-detector switches,
-pause/resume, reset and the trajectory accessors.  A perspective or
-fisheye camera of any setup runs: monocular, stereo (a rectified pair;
-per-keypoint depth by the dense SAD match against the right image) or
-RGB-D (a registered depth map, scaled by ``depthmap_factor``); an
-equirectangular camera is monocular.  A monocular map starts from a
+pause/resume, reset, the trajectory accessors and writers (TUM, KITTI),
+map save and load in the native and the reference's schema (the BoW
+database rebuilt on load), autosave and the frame and map publishers.  A
+perspective or fisheye camera of any setup runs: monocular, stereo (a
+rectified pair; per-keypoint depth by the dense SAD match against the
+right image) or RGB-D (a registered depth map, scaled by
+``depthmap_factor``); an equirectangular camera is monocular.  A monocular map starts from a
 two-view bootstrap (H and F for a perspective camera, E on bearings for
 the others).  Stereo and RGB-D maps are metric: the map starts from one
 frame's depths and loop closure locks the Sim3 scale.
@@ -27,12 +29,19 @@ correction on a thread of its own; each runs on a CUDA stream of its own,
 and they share the map under one lock (``map_lock``).  The feed paces itself
 to the mapper (``_pace_mapper``) so its queue stays short.
 
-Not ported: map IO, publishers and autosave.
+Map reuse (the reference's ``--map-db`` workflow): ``save_map_database``
+writes the map; a new System's ``load_map_database`` reads it into its empty
+map and rebuilds the BoW database; ``disable_mapping_module`` and a LOST
+tracker then relocalize and track on the frozen map, frame by frame or
+through ``feed_sequence``.  ``enable_autosave`` writes a snapshot every N
+keyframes from a writer thread (the checkpoint a crashed session resumes
+from).
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import os
 import threading
 import time
 from typing import List, Optional
@@ -44,12 +53,14 @@ from .camera.base import SetupType, camera_to_config
 from .config import Config
 from .data import Frame, MapDatabase
 from .device import resolve_device
+from .io import map_database_io, msgpack_codec, msgpack_compat, trajectory_io
 from .models.frontend import OrbFrontend
 from .models.track_step import TrackStep
 from .module.global_optimization_module import GlobalOptimizationModule
 from .module.mapping_module import MappingModule
 from .module.tracking_module import TrackerState, TrackingModule
 from .ops.stereo import depth_at_keypoints, stereo_match_dense
+from .publish.publishers import FramePublisher, MapPublisher
 from .utils.log import get_logger
 from .utils.threads import WorkerFaults, on_stream, worker_stream
 
@@ -73,7 +84,8 @@ class System:
     def __init__(self, cfg: Config, vocab_path: Optional[str] = None,
                  async_mapping: bool = False, device="cuda"):
         """``vocab_path`` None or "default" takes the package's vocabulary for
-        the descriptor pattern; otherwise an npz vocabulary file.
+        the descriptor pattern; otherwise a vocabulary file (``.npz``, an
+        ORB-SLAM text ``.txt`` or a DBoW2 binary ``.dbow2`` / ``.bin``).
         ``async_mapping`` runs mapping, the loop pipeline and the global BA
         on worker threads (see the module docstring)."""
         self.device = resolve_device(device)
@@ -117,6 +129,13 @@ class System:
         self.tracker = TrackingModule(cfg, self.cam, self.map_db, mapper=self._tracker_mapper,
                                       relocalizer=self.global_optimizer.relocalizer,
                                       device=self.device)
+        self.frame_publisher = FramePublisher()
+        self.map_publisher = MapPublisher(self.map_db)
+        # periodic snapshots: (path, every N keyframes) or None, and the
+        # writer thread of the last one
+        self._autosave = None
+        self._autosave_kfs = 0
+        self._autosave_thread: Optional[threading.Thread] = None
         # static mask from Feature.mask_rectangles ([y0,y1,x0,x1] ratios)
         self._static_mask = None
         if f.mask_rectangles:
@@ -151,8 +170,9 @@ class System:
 
     def shutdown(self):
         """Drain the mapping worker (it queues loop checks), then stop the
-        loop worker (it may start a global BA), then join the global BA.
-        Every wait is bounded and raises TimeoutError when it expires."""
+        loop worker (it may start a global BA), then join the global BA and
+        a running autosave writer.  Every wait is bounded and raises
+        TimeoutError when it expires."""
         try:
             if isinstance(self._tracker_mapper, _AsyncMapperProxy):
                 self._tracker_mapper.drain()
@@ -160,8 +180,11 @@ class System:
             try:
                 self.global_optimizer.stop_loop_worker()
             finally:
-                self.global_optimizer.join_global_ba(timeout=120)
-                self.tracker.close()
+                try:
+                    self.global_optimizer.join_global_ba(timeout=120)
+                finally:
+                    self.tracker.close()
+                    self.join_autosave(timeout=120)
         _log.info("system shutdown: %d frames, %d keyframes, %d landmarks",
                   len(self.trajectory), self.map_db.n_kfs, len(self.map_db.valid_lm_ids()))
 
@@ -224,6 +247,7 @@ class System:
                 self.global_optimizer.reset(self.map_db)
                 self.trajectory.clear()
                 self.traj_ref.clear()
+                self.map_publisher = MapPublisher(self.map_db)
         finally:
             if isinstance(proxy, _AsyncMapperProxy):
                 proxy.resume()
@@ -310,8 +334,8 @@ class System:
         t0 = time.perf_counter()
         if self._use_fused():
             with self.map_lock:
-                pose, _ = tr.track_fused(img, self.frame_id, timestamp, self._track_step, mask_t,
-                                         aux)
+                pose, frame = tr.track_fused(img, self.frame_id, timestamp, self._track_step,
+                                             mask_t, aux)
             self._fused_frames += 1
         else:
             frame = self._classic_frame(img, aux, timestamp, mask_t)
@@ -319,6 +343,7 @@ class System:
                 pose = tr.track(frame)
         self.frame_id += 1
         self.track_times.append(time.perf_counter() - t0)
+        self._publish(frame, pose, img)
         self._append_trajectory(timestamp, pose)
         return pose
 
@@ -388,9 +413,10 @@ class System:
         def _finish(flight):
             t0 = time.perf_counter()
             with self.map_lock:
-                pose, _ = tr.track_fused_finish(flight["h"])
+                pose, frame = tr.track_fused_finish(flight["h"])
             self._fused_frames += 1
             self.pipe_stats["finish_s"].append(time.perf_counter() - t0)
+            self._publish(frame, pose, flight["img"])
             self._append_trajectory(flight["ts"], pose)
             return pose
 
@@ -427,7 +453,8 @@ class System:
                     h = tr.track_fused_dispatch(img, self.frame_id, ts, self._track_step, mask_t,
                                                 aux)
                 self.pipe_stats["dispatch_s"].append(time.perf_counter() - td)
-                inflight.append({"h": h, "ts": ts, "fid": self.frame_id, "item": item})
+                inflight.append({"h": h, "ts": ts, "fid": self.frame_id, "item": item,
+                                 "img": img})
                 self.frame_id += 1
                 yield from _drain(depth)
             else:
@@ -448,6 +475,65 @@ class System:
                 self.traj_ref.append((int(ref), rel))
             else:
                 self.traj_ref.append(None)
+
+    def _publish(self, frame, pose, image=None):
+        """Hand the frame to the publishers (host numpy: no device sync) and
+        take an autosave tick."""
+        self.frame_publisher.publish(frame, self.tracker.state.name, image=image)
+        self._maybe_autosave()
+        if pose is not None:
+            self.map_publisher.set_current_pose(pose)
+
+    # ------------------------------------------------------------------
+    # autosave
+    # ------------------------------------------------------------------
+    def enable_autosave(self, path: str, every_n_keyframes: int = 25):
+        """Write a map snapshot (native schema) to ``path`` every N new
+        keyframes, from a writer thread: the map is serialized under the
+        map lock to ``path + ".tmp"``, which then replaces ``path``, so a
+        crashed session resumes from the last whole snapshot through
+        ``load_map_database``.  A tick is skipped while the previous write
+        runs; the writer's exceptions are counted in ``stats()``
+        (``worker_exceptions``)."""
+        self._autosave = (path, max(1, int(every_n_keyframes)))
+        self._autosave_kfs = 0
+
+    def disable_autosave(self):
+        self._autosave = None
+
+    def join_autosave(self, timeout: float = 120.0):
+        """Wait for a running snapshot write; raises TimeoutError after
+        ``timeout`` seconds."""
+        t = self._autosave_thread
+        if t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                raise TimeoutError(f"autosave writer still running after {timeout} s")
+
+    def _maybe_autosave(self):
+        if self._autosave is None:
+            return
+        path, every = self._autosave
+        if self.map_db.n_kfs - self._autosave_kfs < every:
+            return
+        t = self._autosave_thread
+        if t is not None and t.is_alive():
+            return          # the previous snapshot is still being written
+        self._autosave_kfs = self.map_db.n_kfs
+        faults = self.global_optimizer.faults
+
+        def _write():
+            try:
+                tmp = path + ".tmp"
+                with self.map_lock:
+                    map_database_io.save_map(self.map_db, self.cfg, tmp)
+                os.replace(tmp, path)
+            except Exception:
+                faults.record(f"autosave writer: {path}")
+
+        self._autosave_thread = threading.Thread(target=_write, daemon=True,
+                                                 name="map-autosave")
+        self._autosave_thread.start()
 
     def _to_gray(self, image: np.ndarray) -> np.ndarray:
         if image.ndim == 3:
@@ -491,6 +577,79 @@ class System:
                 hops += 1
             poses[i] = rel @ db.kf_pose_cw[kf] if 0 <= kf < db.n_kfs and db.kf_valid[kf] else p
         return ts, poses, mask
+
+    def save_frame_trajectory(self, path: str, fmt: str = "TUM", composed: bool = True):
+        """Write the tracked frames' trajectory, TUM or KITTI.  ``composed``
+        (the reference's behaviour) composes each pose from its reference
+        keyframe's current pose (``composed_poses``), so later corrections
+        reach it; otherwise the poses as tracked."""
+        ts, poses, mask = self.composed_poses() if composed else self.tracked_poses()
+        mask = mask.astype(bool)
+        self._write_trajectory(path, fmt, ts[mask], poses[mask])
+
+    def save_keyframe_trajectory(self, path: str, fmt: str = "TUM"):
+        """Write the live keyframes' poses, TUM or KITTI."""
+        with self.map_lock:
+            ids = self.map_db.valid_kf_ids()
+            ts, poses = self.map_db.kf_timestamp[ids], self.map_db.kf_pose_cw[ids].copy()
+        self._write_trajectory(path, fmt, ts, poses)
+
+    @staticmethod
+    def _write_trajectory(path: str, fmt: str, ts, poses):
+        if fmt.upper() == "TUM":
+            trajectory_io.save_trajectory_tum(path, ts, poses)
+        elif fmt.upper() == "KITTI":
+            trajectory_io.save_trajectory_kitti(path, poses)
+        else:
+            raise ValueError(f"unknown trajectory format {fmt!r} (TUM or KITTI)")
+
+    # ------------------------------------------------------------------
+    # map IO
+    # ------------------------------------------------------------------
+    def save_map_database(self, path: str, format: str = "native"):
+        """Write the map: ``format`` "native" (the columnar
+        ``openvslam_tpu/1`` schema) or "openvslam" (the reference's
+        schema).  Taken under the map lock."""
+        _log.info("saving map database to %s (%s format)", path, format)
+        save = {"native": map_database_io.save_map,
+                "openvslam": msgpack_compat.save_map_openvslam}.get(format)
+        if save is None:
+            raise ValueError(f"unknown map format {format!r} (native or openvslam)")
+        with self.map_lock:
+            save(self.map_db, self.cfg, path)
+
+    def load_map_database(self, path: str):
+        """Load a map into this System's empty map: the file is read and
+        decoded once and its schema sniffed (native or the reference's).
+        The loaded cameras are registered beside this session's own (a name
+        collision with a different camera is suffixed and remapped).  Then
+        the BoW database is rebuilt: each keyframe's words assigned from its
+        descriptors in batches on this System's device."""
+        with open(path, "rb") as f:
+            blob = msgpack_codec.unpackb(f.read())
+        ref_schema = msgpack_compat.sniff_blob(blob)
+        _log.info("loading map database from %s (%s schema)", path,
+                  "reference" if ref_schema else "native")
+        with self.map_lock:
+            if ref_schema:
+                msgpack_compat.load_map_openvslam(self.map_db, path, blob=blob)
+            else:
+                map_database_io.load_map(self.map_db, path, blob=blob)
+            self.map_db.version += 1        # device caches keyed on it rebuild
+            self.rebuild_bow_database()
+
+    def rebuild_bow_database(self):
+        """Register every live keyframe in an emptied BoW database (words
+        and tf-idf vectors computed on the device, 64 keyframes a batch)."""
+        db = self.map_db
+        bow = self.global_optimizer.bow_db
+        bow.clear()
+        ids = [int(k) for k in db.valid_kf_ids()]
+        for i in range(0, len(ids), 64):
+            chunk = ids[i:i + 64]
+            words = bow.compute_words_batch(np.stack([db.kf_desc_i8[k] for k in chunk]),
+                                            np.stack([db.kf_kpt_valid[k] for k in chunk]))
+            bow.add_keyframes_batch(chunk, words, bow.bow_vecs_batch(words))
 
     def tracked_poses(self):
         """(timestamps, poses_cw, tracked_mask) over all fed frames, as tracked."""

@@ -1,8 +1,11 @@
 """The port stands alone and keeps its device rules:
 
 * no module of ``openvslam_tpu_torch/`` (nor ``chip_smoke.py``) imports
-  ``jax``, ``flax`` or ``openvslam_tpu``, and importing the package loads
-  no JAX and builds no kernel;
+  ``jax``, ``flax`` or ``openvslam_tpu``, nor ``msgpack``, ``imageio``,
+  ``cv2`` or ``PIL`` (the card's machine has none of them: the port writes
+  maps with its own codec and decodes PNG itself), and importing the
+  package, its IO, publishers and dataset loaders included, loads none of
+  them and builds no kernel;
 * an entry point asked for the default CUDA device on a machine without one
   raises instead of running on the CPU;
 * kernel wrappers take the plain version only for CPU tensors and count no
@@ -41,7 +44,7 @@ from openvslam_tpu_torch.utils import native, stereo_rectifier
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(openvslam_tpu_torch.__file__))
-FORBIDDEN = ("jax", "jaxlib", "flax", "openvslam_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "openvslam_tpu", "msgpack", "imageio", "cv2", "PIL")
 
 
 def _port_sources():
@@ -73,9 +76,14 @@ def test_no_jax_imports_in_port():
 def test_import_loads_no_jax_and_builds_nothing():
     code = ("import sys, openvslam_tpu_torch, openvslam_tpu_torch.models.track_step, "
             "openvslam_tpu_torch.convert, openvslam_tpu_torch.system, "
-            "openvslam_tpu_torch.kernels as k, openvslam_tpu_torch.utils.native as nat, torch\n"
+            "openvslam_tpu_torch.kernels as k, openvslam_tpu_torch.utils.native as nat, torch, "
+            "openvslam_tpu_torch.io.map_database_io, openvslam_tpu_torch.io.msgpack_compat, "
+            "openvslam_tpu_torch.publish.socket_viewer, openvslam_tpu_torch.publish.html_viewer, "
+            "openvslam_tpu_torch.utils.datasets\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'openvslam_tpu.')) "
             "or m == 'openvslam_tpu' for m in sys.modules), sorted(sys.modules)\n"
+            "assert not {'msgpack', 'imageio', 'cv2', 'PIL'} & {m.split('.')[0] for m in "
+            "sys.modules}, sorted(sys.modules)\n"
             "assert not k._libs and nat._lib is None\n"
             "assert 'yaml' not in sys.modules\n"
             "assert torch.backends.cudnn.allow_tf32 is False\n"
@@ -180,7 +188,8 @@ def test_system_refuses_missing_cuda_and_unported_features(monkeypatch):
 def test_port_names_no_path_outside_its_package():
     """Every absolute path a port module holds (source, build and asset
     locations) lies inside the package, and no source spells a path into
-    the JAX package's tree (``native/``, ``openvslam_tpu/``)."""
+    the JAX package's tree (``native/``, ``openvslam_tpu/``, a ``native``
+    or ``..`` component of a path call)."""
     import importlib
     import pkgutil
 
@@ -198,7 +207,14 @@ def test_port_names_no_path_outside_its_package():
         for node in ast.walk(ast.parse(open(path).read(), path)):
             if isinstance(node, ast.Constant) and isinstance(node.value, str):
                 v = node.value
-                assert v != "native" and "native/" not in v and ".." not in v.split("/"), (path, v)
+                assert "native/" not in v and ".." not in v.split("/"), (path, v)
+            # a bare "native" is a path component only as an argument of a
+            # path call; elsewhere it is the name of the native map schema
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                    node.func, "id", None)) in ("join", "Path", "open", "exists", "isdir"):
+                for a in node.args:
+                    assert not (isinstance(a, ast.Constant) and a.value in ("native", "..")), (
+                        path, ast.unparse(node))
     assert native.SRC.startswith(PKG) and native.lib_path().startswith(PKG)
 
 

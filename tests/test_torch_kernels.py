@@ -15,7 +15,13 @@ sum in another order than the plain version) for N from 1 to 8192, mono
 and stereo (observations in registers and read from device memory), all
 rows masked included; FrameStep on the GPU against the
 same step on the CPU: identical keypoints, >= 99 % equal matches, T within
-atol 1e-3.
+atol 1e-3; a map saved and loaded on the card, whose first relocalization
+is replayed on the CPU from the same file with the card's RANSAC draws:
+the same candidate keyframe, the same stage-1 counts, the pose within
+atol 1e-3; the bundle adjustments' fixed-order sums on the card bit for bit
+equal to ``index_add_`` on the CPU; a padded local BA problem solved three
+times on the card, bit for bit the same, and against the CPU's solve: the
+same inliers, T within atol 1e-3.
 """
 import numpy as np
 import pytest
@@ -269,3 +275,141 @@ def test_frame_step_gpu_matches_cpu(cuda):
     assert torch.equal(g.kp_xy.cpu(), c.kp_xy) and torch.equal(g.kp_valid.cpu(), c.kp_valid)
     assert float((g.lm_kpt_idx.cpu() == c.lm_kpt_idx).float().mean()) >= 0.99
     assert float((g.T_cw.cpu() - c.T_cw).abs().max()) <= 1e-3
+
+
+def test_loaded_map_relocalizes_as_on_the_cpu(cuda, tmp_path):
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.module import relocalizer as RL
+    from openvslam_tpu_torch.module.tracking_module import TrackerState
+    from openvslam_tpu_torch.system import System
+
+    cfg = Config.from_dict({
+        "Camera": {"name": "synthetic", "setup": "monocular", "model": "perspective",
+                   "fx": 350.0, "fy": 350.0, "cx": 208.0, "cy": 160.0, "cols": 416,
+                   "rows": 320, "fps": 20},
+        "Feature": {"max_num_keypts": 600, "num_levels": 4, "scale_factor": 1.2},
+        "LoopDetector": {"enabled": False}})
+    cam = cfg.camera
+    scene = synthetic.PlaneSceneRenderer(np.random.default_rng(21), x_range=(-5, 8),
+                                         y_range=(-5, 5), plane_z=7.0, rows=cam.rows,
+                                         cols=cam.cols)
+    poses = [synthetic.lookat_pose_cw((x, 0, 0), (x, 0, 7)) for x in np.linspace(0, 4, 25)]
+    s = System(cfg, device=cuda)
+    for i, p in enumerate(poses):
+        s.feed_monocular_frame(scene.render(cam, p), i / 20.0)
+    s.shutdown()
+    path = str(tmp_path / "map.msg")
+    s.save_map_database(path)
+
+    calls = []
+    stage1 = RL.reloc_stage1
+
+    def spy(gen, samples=None, **ops):
+        out = stage1(gen, samples=samples, **ops)
+        calls.append(out)
+        return out
+
+    frame = scene.render(cam, poses[10])
+    runs = {}
+    draws = []
+    sample = RL.ransac.sample_minimal_sets
+
+    def record(*a, **kw):
+        draws.append(sample(*a, **kw))
+        return draws[-1]
+
+    for d in (cuda, "cpu"):
+        sd = System(cfg, device=d)
+        sd.load_map_database(path)
+        sd.disable_mapping_module()
+        sd.tracker.state = TrackerState.LOST
+        calls.clear()
+        if d == cuda:
+            RL.ransac.sample_minimal_sets, RL.reloc_stage1 = record, spy
+        else:
+            RL.reloc_stage1 = lambda gen, samples=None, **ops: spy(
+                gen, samples=draws[0].cpu(), **ops)
+        try:
+            T = sd.feed_monocular_frame(frame, 100.0)
+        finally:
+            RL.ransac.sample_minimal_sets, RL.reloc_stage1 = sample, stage1
+        assert T is not None and calls, f"no relocalization on {d}"
+        _, n_match, _, n_inl = (x.cpu().numpy() for x in calls[0])
+        runs[d] = dict(kf=sd.global_optimizer.relocalizer.last_reloc_kf, n_match=n_match,
+                       n_inl=n_inl, T=T)
+        sd.shutdown()
+    g, c = runs[cuda], runs["cpu"]
+    assert g["kf"] == c["kf"]
+    np.testing.assert_array_equal(g["n_match"], c["n_match"])
+    np.testing.assert_array_equal(g["n_inl"], c["n_inl"])
+    assert float(np.abs(g["T"] - c["T"]).max()) <= 1e-3
+
+
+def _ba_problem(rng, C=8, L=300, pad=500):
+    """A mono window: C cameras on an arc looking at L points, each point
+    seen by every camera in front of which it projects inside the image,
+    0.5 px noise, 5 % outliers, camera 0 fixed, ``pad`` padding rows at
+    index 0 as the mapper pads."""
+    from openvslam_tpu_torch.optimize.ba import BAProblem
+
+    cam = Perspective(fx=300.0, fy=300.0, cx=160.0, cy=120.0, cols=320, rows=240)
+    poses = synthetic.orbit_trajectory(C, radius=2.0, target=(0, 0, 6), arc=np.pi / 6)
+    X = rng.uniform((-3, -2, 4), (3, 2, 8), (L, 3)).astype(np.float32)
+    oc, ol, uv = [], [], []
+    for c, T in enumerate(poses):
+        pc = X @ T[:3, :3].T + T[:3, 3]
+        u = 300.0 * pc[:, 0] / pc[:, 2] + 160.0
+        v = 300.0 * pc[:, 1] / pc[:, 2] + 120.0
+        ok = (pc[:, 2] > 0.1) & (u >= 0) & (u < 320) & (v >= 0) & (v < 240)
+        for lm in np.nonzero(ok)[0]:
+            oc.append(c), ol.append(lm), uv.append((u[lm], v[lm]))
+    n = len(oc)
+    uv = np.asarray(uv, np.float32) + rng.normal(0, 0.5, (n, 2)).astype(np.float32)
+    bad = rng.choice(n, n // 20, replace=False)
+    uv[bad] += rng.uniform(20, 60, (len(bad), 2)).astype(np.float32)
+    O = n + pad
+    T_init = np.stack(poses).astype(np.float32)
+    T_init[1:, :3, 3] += rng.normal(0, 0.02, (C - 1, 3)).astype(np.float32)
+    X_init = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    def padded(a, dtype):
+        out = np.zeros((O,) + np.shape(a)[1:], dtype)
+        out[:n] = a
+        return torch.from_numpy(out)
+    cam_opt = torch.ones(C, dtype=torch.bool)
+    cam_opt[0] = False
+    prob = BAProblem(torch.from_numpy(T_init), cam_opt, torch.ones(C, dtype=torch.bool),
+                     torch.from_numpy(X_init), torch.ones(L, dtype=torch.bool),
+                     padded(oc, np.int32), padded(ol, np.int32), padded(uv, np.float32),
+                     padded(np.ones(n), np.float32), padded(np.ones(n, bool), bool))
+    return cam, prob
+
+
+@pytest.mark.parametrize("rows,obs,tail", [(24, 11000, (6, 6)), (2000, 11000, (3,)),
+                                           (1, 3000, (7, 7))])
+def test_fixed_order_sums_equal_cpu_index_add(rng, cuda, rows, obs, tail):
+    from openvslam_tpu_torch.optimize.segment_sum import segment_sums
+
+    idx = torch.from_numpy(rng.integers(0, rows, obs)).to(torch.int64)
+    blocks = torch.from_numpy(rng.standard_normal((obs,) + tail).astype(np.float32))
+    keep = torch.from_numpy(rng.random(obs) < 0.9)
+    blocks[~keep] = 0.0
+    fixed, = segment_sums([(idx.to(cuda), rows, keep.to(cuda))])
+    assert fixed.pos is not None
+    want = torch.zeros((rows,) + tail).index_add_(0, idx, blocks)
+    assert torch.equal(fixed(blocks.to(cuda)).cpu(), want)
+
+
+def test_local_ba_repeats_on_the_card(rng, cuda):
+    from openvslam_tpu_torch.optimize.ba import make_local_ba
+
+    cam, prob = _ba_problem(rng)
+    ba = make_local_ba(cam)
+    runs = [ba(prob.to(cuda)) for _ in range(3)]
+    for r in runs[1:]:
+        for a, b in zip(runs[0], r):
+            assert torch.equal(a, b)
+    ref = ba(prob)
+    got = runs[0]
+    assert torch.equal(got.obs_inlier.cpu(), ref.obs_inlier)
+    assert int(ref.obs_inlier.sum()) < int(prob.obs_mask.sum())
+    assert float((got.T_cw.cpu() - ref.T_cw).abs().max()) <= 1e-3

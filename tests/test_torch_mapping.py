@@ -369,3 +369,62 @@ def test_local_ba_outcome_does_not_depend_on_summation_order(rng, capsys):
     with capsys.disabled():
         print(f"\nlocal BA, observations reordered: {row}")
     assert row["ok"], row
+
+
+@pytest.mark.parametrize("rows,obs,tail,padded", [
+    (7, 200, (6, 6), 0), (50, 400, (3,), 300), (3, 0, (6, 3), 0), (1, 64, (), 10),
+    (4, 20, (2,), 20)])
+def test_fixed_order_sums_match_index_add(rng, rows, obs, tail, padded):
+    """The slot-grid sums the card runs (``segment_sum``, forced here on the
+    CPU) against ``index_add_`` and a float64 sum, and their slot order
+    against ``index_add_``'s order of additions, on repeated, missing and
+    empty indices, with ``padded`` blocks outside the keep mask at index 0
+    weighted zero, as a BA problem pads; the grid stays as wide as the kept
+    blocks need."""
+    from openvslam_tpu_torch.optimize.segment_sum import segment_sums
+
+    idx = torch.from_numpy(rng.integers(0, rows, obs)).to(torch.int64)
+    blocks = torch.from_numpy(rng.standard_normal((obs,) + tail).astype(np.float32))
+    keep = torch.ones(obs, dtype=torch.bool)
+    idx[obs - padded:], blocks[obs - padded:], keep[obs - padded:] = 0, 0.0, False
+    fixed, = segment_sums([(idx, rows, keep)], fixed_order=True)
+    plain, = segment_sums([(idx, rows, keep)], fixed_order=False)
+    assert fixed.pos is not None and plain.pos is None
+    assert fixed.m == max(int(torch.bincount(idx[keep], minlength=rows).max()) if keep.any()
+                          else 1, 1)
+    got = fixed(blocks)
+    want = torch.zeros((rows,) + tail, dtype=torch.float64).index_add_(0, idx, blocks.double())
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(plain(blocks).double(), want, rtol=0, atol=1e-5)
+    # the slots hold each row's blocks in block order: added one after
+    # another in float32 (as the card's cumsum adds; the CPU's accumulates
+    # in float64) they give index_add_'s sums bit for bit
+    grid = blocks.new_zeros((rows * fixed.m + 1,) + tail).index_copy_(0, fixed.pos, blocks)
+    grid = grid[:-1].view((rows, fixed.m) + tail)
+    run = torch.zeros((rows,) + tail)
+    for k in range(fixed.m):
+        run = run + grid[:, k]
+    assert torch.equal(run, plain(blocks))
+
+
+def test_local_ba_in_fixed_order_matches_index_add(rng, monkeypatch):
+    """tests/test_ba.py's noisy problem solved with the card's fixed-order
+    sums and with ``index_add_``: the same inliers, poses and points to
+    the tolerances that hold the port to JAX (``test_local_ba_matches_jax``)."""
+    import functools
+
+    from openvslam_tpu_torch.optimize import segment_sum
+
+    jcam, prob, _, _, _, _ = _build_problem(rng, noise_px=0.5)
+    p = BA.BAProblem(*(_t(np.array(a)) for a in prob))
+    ref = BA.make_local_ba(_port_cam(jcam))(p)
+    monkeypatch.setattr(BA, "segment_sums",
+                        functools.partial(segment_sum.segment_sums, fixed_order=True))
+    res = BA.make_local_ba(_port_cam(jcam))(p)
+    assert torch.equal(res.obs_inlier, ref.obs_inlier)
+    torch.testing.assert_close(res.T_cw, ref.T_cw, rtol=0, atol=1e-4)
+    lv = p.lm_valid.numpy()
+    rel = (np.linalg.norm(res.X.numpy() - ref.X.numpy(), axis=-1)
+           / np.maximum(np.linalg.norm(ref.X.numpy(), axis=-1), 1.0))
+    assert rel[lv].max() <= 1e-3
