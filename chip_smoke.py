@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port's per-frame tracking step on one GPU.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
+    python3 chip_smoke.py --phase10  # phases 1 and 10 alone (no "ok" line)
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the kernels' build;
@@ -92,6 +93,22 @@ Phases:
      session resumed from an autosave snapshot keeps mapping (tracked >=
      0.90, the map grows, ATE <= 0.05 m under the first session's
      alignment); the viewers' exports on the loaded map.
+ 10. many streams and many sessions, after 8b: (a) at bench.py's kernel
+     point, 4 consecutive frames as 4 streams through ``BatchFrameStep``
+     (one launch of K1 over all levels of the 4 frames, one of K2 and one
+     of K3 over a grid of 4 problems): each batched launch bit for bit 4
+     single launches and held against its plain version on its own
+     operands at phase 3's gates, each stream bit for bit ``FrameStep``, CUDA-event
+     times of one batched launch against 4 single launches and of the
+     batched step against 4 FrameStep calls, the step at B = 1, 4 and 8,
+     and 36 frames as 9 batched steps; (b) ``StreamParallelStep`` with the
+     4 streams on CUDA streams of the card, each equal to FrameStep, and
+     the wall time of a round; (c) ``MultiSessionRunner`` on three mono
+     sessions at tests/test_multi_session.py's point (416x320, 18 frames
+     each), every session tracked > 0.8, one joint BA lowering the pooled
+     robust cost below 0.8 of its perturbed value, 1 and 4 in-process
+     shards within 5 % in cost, and a world-size-1 NCCL group's solve bit
+     for bit the 1-shard solve; the group destroyed at the end.
 Kernel launch counts are reset just before each main-path run and read just
 after it.  Any mismatch, any kernel that a main-path run did not launch, or
 any exception exits non-zero.  The last line is a JSON object with the
@@ -99,7 +116,8 @@ device; the line before it is the card's name and power limit; the line
 before that lists every kernel with its numbers and its launches in the
 main-path runs (FrameStep, TrackStep, System, loop-and-relocalization,
 their async runs, stereo, stereo async, RGB-D, the stereo loop, fisheye,
-equirectangular and map reuse).  ``faulthandler`` is on for the whole run:
+equirectangular, map reuse and the multi-stream runs of phase 10, whose
+batched launches and batched row it adds).  ``faulthandler`` is on for the whole run:
 a fault in native code leaves every thread's Python stack on stderr.
 """
 from __future__ import annotations
@@ -426,16 +444,46 @@ def check_k1(levels, budgets, masks=(None,), thr=(20.0, 7.0)):
     ms_k = cuda_ms(lambda: lib(*args), 200)[0]
     pms = cuda_ms(lambda: fast.fast_cell_pools_plain(levels, *thr, budgets, masks=m0), 10,
                   repeats=1)[0]
-    px = sum(im.numel() for im in levels)
-    arc_px = sum(int((fast.fast_score_maps(im, [thr[1]])[0] > 0).sum()) for im in levels)
-    geo = fast.pool_geometry(tuple(shapes), tuple(budgets), 32)
-    topk_ops = sum(n * k * 1024 for n, k in zip(geo.cells, geo.k_cell))
-    b, by = bound(px * 110 + arc_px * 160 + topk_ops, H100_F32_OPS_PER_S,
-                  px * 4 + len(levels) * geo.vmax * (4 + 8))
+    ops, nbytes, px, arc_px, geo = k1_work(levels, budgets, thr)
+    b, by = bound(ops, H100_F32_OPS_PER_S, nbytes)
     return dict(shape=f"{len(levels)} levels {shapes[0][1]}x{shapes[0][0]}", exact=exact,
                 max_abs_err=err, ms=ms_w, ms_lo=lo, ms_hi=hi, ms_kernel_only=ms_k, plain_ms=pms,
                 bound_ms=b, bound_by=by, pixels=px, arc_pixels=arc_px, pool_width=geo.vmax,
                 corners=corners, masks=len(masks))
+
+
+def k1_work(levels, budgets, thr):
+    """The least work of one frame's K1 launch (``check_k1``): (operations,
+    bytes, pixels, pixels with a lower-threshold arc, pool geometry)."""
+    from openvslam_tpu_torch.ops import fast
+
+    shapes = [tuple(im.shape) for im in levels]
+    px = sum(im.numel() for im in levels)
+    arc_px = sum(int((fast.fast_score_maps(im, [thr[1]])[0] > 0).sum()) for im in levels)
+    geo = fast.pool_geometry(tuple(shapes), tuple(budgets), 32)
+    topk_ops = sum(n * k * 1024 for n, k in zip(geo.cells, geo.k_cell))
+    return (px * 110 + arc_px * 160 + topk_ops, px * 4 + len(levels) * geo.vmax * (4 + 8), px,
+            arc_px, geo)
+
+
+def k2_work(a2):
+    """The least work of one K2 problem (``check_k2``): (operations, bytes,
+    gate pairs)."""
+    import torch
+    from openvslam_tpu_torch.ops import match as M
+
+    gate = M.projection_gate(a2[2], a2[3], a2[6], a2[4]) & a2[8][None, :]
+    gate &= (torch.abs(a2[7][None, :] - a2[5][:, None]) <= 1) | (a2[5] < 0)[:, None]
+    pairs = int(gate.sum())
+    nbytes = sum(t.numel() * t.element_size() for t in a2) + 2 * 4 * a2[0].shape[0]
+    return pairs * 24, nbytes, pairs
+
+
+def k3_work(args):
+    """The least work of one K3 problem (``check_k3``): (operations, bytes)."""
+    N, m = args[1].shape[0], int(args[4].sum())
+    return (44 * m * (110 + 27 * 8) + N * 110,
+            sum(t.numel() * t.element_size() for t in args) + N * 5 + 64 + 8)
 
 
 def check_k2(a2, kw2, image):
@@ -468,11 +516,8 @@ def check_k2(a2, kw2, image):
     lib = kernels.library("match")
     ms_k = cuda_ms(lambda: lib(*args), 200)[0]
     pms = cuda_ms(lambda: M.projection_scale_match_plain(*a2, **kw2), 10, repeats=1)[0]
-    gate = M.projection_gate(a2[2], a2[3], a2[6], a2[4]) & a2[8][None, :]
-    gate &= (torch.abs(a2[7][None, :] - a2[5][:, None]) <= 1) | (a2[5] < 0)[:, None]
-    pairs = int(gate.sum())
-    nbytes = sum(t.numel() * t.element_size() for t in a2) + 2 * 4 * a2[0].shape[0]
-    b, by = bound(pairs * 24, H100_F32_OPS_PER_S, nbytes)
+    ops, nbytes, pairs = k2_work(a2)
+    b, by = bound(ops, H100_F32_OPS_PER_S, nbytes)
     return dict(shape=f"L{a2[0].shape[0]}xK{a2[1].shape[0]} on {image[0]}x{image[1]}",
                 exact=exact, max_abs_err=err, ms=ms_w, ms_lo=lo, ms_hi=hi, ms_kernel_only=ms_k,
                 plain_ms=pms, bound_ms=b, bound_by=by, visible=int(a2[3].sum()),
@@ -500,8 +545,7 @@ def check_k3(args, kw):
     ms_k = cuda_ms(lambda: lib(*kargs), 50)[0]
     pms = cuda_ms(lambda: pose_lm.pose_lm_plain(*args, **kw), 3, warmup=1, repeats=1)[0]
     N, m = args[1].shape[0], int(args[4].sum())
-    ops = 44 * m * (110 + 27 * 8) + N * 110
-    nbytes = sum(t.numel() * t.element_size() for t in args) + N * 5 + 64 + 8
+    ops, nbytes = k3_work(args)
     b, by = bound(ops, H100_F32_OPS_PER_S, nbytes)
     return dict(shape=f"N{N} {args[2].shape[1]}-column fxb {kw['fxb']}", masked=m,
                 ok=dT <= 1e-3 and agree >= 0.99, max_abs_err=dT, inlier_agreement=agree,
@@ -2572,6 +2616,393 @@ def map_reuse_phase(dev, s5, frames, poses5):
     return out, launches, rows
 
 
+# Phase 10's multi-session point: tests/test_multi_session.py's
+# ``_make_system`` and ``_session_frames`` (416x320, fx = fy = 350, 500
+# keypoints, 4 levels; a PatchSceneRenderer and an 18-frame orbit per
+# session, seeds 20-22)
+MULTI_SESSION_POINT = dict(rows=320, cols=416, fx=350.0, keypoints=500, levels=4, frames=18,
+                           seeds=(20, 21, 22))
+STREAMS = 4
+
+
+def capture_kernel_operands(run):
+    """Run ``run()`` with the three kernel wrappers wrapped where the
+    package calls them; return the operands of each one's last call,
+    {kernel key: (args, kwargs)}.  Launches nothing itself."""
+    from openvslam_tpu_torch.ops import fast, match as M
+    from openvslam_tpu_torch.optimize import pose_optimizer as PO
+
+    got = {}
+    wrapped = [(fast, "fast_cell_pools", "fast_score_maps"),
+               (M, "projection_scale_match", "projection_match"), (PO, "pose_lm", "pose_lm")]
+    orig = [getattr(m, n) for m, n, _ in wrapped]
+
+    def wrap(f, key):
+        def w(*a, **kw):
+            got[key] = (a, kw)
+            return f(*a, **kw)
+        return w
+
+    for (m, n, key), f in zip(wrapped, orig):
+        setattr(m, n, wrap(f, key))
+    try:
+        run()
+    finally:
+        for (m, n, _), f in zip(wrapped, orig):
+            setattr(m, n, f)
+    return got
+
+
+def check_batched(key, args, kw, B):
+    """One batched launch of kernel ``key`` on the captured operands of a
+    B-problem call against B single launches (bit for bit) and against the
+    plain version over the batch (``max_abs_err``; ``plain_ok`` at phase
+    3's gates), with CUDA-event times of the batched launch and of the B
+    single launches, each through the wrapper and as the C entry alone, the
+    plain version over the batch, and the bound for the B problems (the sum
+    of their least work)."""
+    import torch
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.ops import fast, match as M, pose_lm as PL
+
+    if key == "fast_score_maps":
+        levels, thr_hi, thr_lo, budgets = args[:4]
+        masks = args[5] if len(args) > 5 else kw.get("masks")
+
+        def one(b):
+            return ([im[b] for im in levels], thr_hi, thr_lo, budgets, 32,
+                    None if masks is None else [m[b] for m in masks]), {}
+
+        wrapper, plain, lib_name = fast.fast_cell_pools, fast.fast_cell_pools_plain_batch, "fast"
+        make_args = fast.kernel_args
+        batched = ((levels, thr_hi, thr_lo, budgets, 32, masks), {})
+        work = [k1_work(one(b)[0][0], budgets, (thr_hi, thr_lo))[:2] for b in range(B)]
+        shape = f"{B} x {len(levels)} levels {levels[0].shape[-1]}x{levels[0].shape[-2]}"
+    elif key == "projection_match":
+        kw2 = dict(kw)
+        image = kw2.pop("image_size")
+
+        def one(b):
+            return tuple(t[b] for t in args), dict(kw2, image_size=image)
+
+        wrapper, plain, lib_name = M.projection_scale_match, M.projection_scale_match_plain_batch, \
+            "match"
+        make_args = M.kernel_args
+        batched = (args, dict(kw2, image_size=image))
+        work = [k2_work(one(b)[0])[:2] for b in range(B)]
+        shape = f"{B} x L{args[0].shape[1]}xK{args[1].shape[1]}"
+    else:
+        def one(b):
+            return tuple(t[b] for t in args), kw
+
+        wrapper, plain, lib_name = PL.pose_lm, PL.pose_lm_plain_batch, "pose_lm"
+        make_args = PL.kernel_args
+        batched = (args, kw)
+        work = [k3_work(one(b)[0]) for b in range(B)]
+        shape = f"{B} x N{args[1].shape[1]} {args[2].shape[2]}-column"
+    outs = wrapper(*batched[0], **batched[1])
+    exact, err = True, 0.0
+    for b in range(B):
+        a1, k1 = one(b)
+        for x, y in zip(wrapper(*a1, **k1), outs):
+            exact &= torch.equal(x, y[b])
+            err = max(err, float((x.to(torch.float64) - y[b].to(torch.float64)).abs().max()))
+    lib = kernels.library(lib_name)
+    kargs_b = make_args(*batched[0], **{k: v for k, v in batched[1].items()})
+    kargs_1 = [make_args(*one(b)[0], **one(b)[1]) for b in range(B)]
+    ms_b = cuda_ms(lambda: wrapper(*batched[0], **batched[1]), 50)
+    ms_1 = cuda_ms(lambda: [wrapper(*one(b)[0], **one(b)[1]) for b in range(B)], 50)
+    ms_kb = cuda_ms(lambda: lib(*kargs_b[0]), 50)[0]
+    ms_k1 = cuda_ms(lambda: [lib(*ka[0]) for ka in kargs_1], 50)[0]
+    p_kw = {k: v for k, v in batched[1].items() if k != "image_size"}
+    held = {}
+    pms = cuda_ms(lambda: held.update(out=plain(*batched[0], **p_kw)), 2, warmup=1,
+                  repeats=1)[0]
+    # the batched launch against the plain version on the same operands, at
+    # phase 3's gates: K1 and K2 exact, K3's pose within 1e-3 with >= 0.99
+    # of its inlier flags equal
+    pouts = held["out"]
+    if key == "pose_lm":
+        p_err = float((outs[0] - pouts[0]).abs().max())
+        agree = float((outs[1] == pouts[1]).float().mean())
+        plain_ok = p_err <= 1e-3 and agree >= 0.99
+    else:
+        diffs = [torch.where(x == y, 0.0, (x.to(torch.float64) - y.to(torch.float64)).abs())
+                 for x, y in zip(outs, pouts)]
+        p_err = max(float(d.max()) for d in diffs)
+        agree = None
+        plain_ok = all(torch.equal(x, y) for x, y in zip(outs, pouts))
+    b_ms, b_by = bound(sum(w[0] for w in work), H100_F32_OPS_PER_S, sum(w[1] for w in work))
+    del kargs_b, kargs_1
+    return dict(shape=f"phase 10a batched {shape}", problems=B, exact=exact,
+                max_abs_err=p_err, max_abs_err_vs_singles=err, plain_ok=plain_ok,
+                inlier_agreement=agree,
+                ms=ms_b[0], ms_lo=ms_b[1], ms_hi=ms_b[2], singles_ms=ms_1[0],
+                ms_kernel_only=ms_kb, singles_kernel_only_ms=ms_k1, plain_ms=pms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def multistream_phase(dev, fs, imgs_d, poses_d, poses, lm):
+    """Phases 10a and 10b at bench.py's kernel point (phase 3's FrameStep,
+    frames and local map): B = STREAMS consecutive frames as that many
+    streams, through ``BatchFrameStep`` (one batched launch of K1, K2 and
+    K3 for all streams) and through ``StreamParallelStep`` (each stream on
+    its own CUDA stream of this card).  Returns (summary, launch counts of
+    both main-path runs, batched launch counts, batched rows by kernel)."""
+    import torch
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.models.batch_step import BatchFrameStep
+    from openvslam_tpu_torch.parallel import make_mesh
+    from openvslam_tpu_torch.parallel.stream_parallel import StreamParallelStep
+
+    t_phase = time.perf_counter()
+    cam, B, L = fs.cam, STREAMS, fs.lm_capacity
+    o = fs.options
+    bs = BatchFrameStep(cam, max_keypts=o["max_keypts"], num_levels=o["num_levels"],
+                        lm_capacity=L, device=dev)
+    lm_pos, lm_desc, lm_valid, lm_lvl = lm
+
+    def stacked(first, n):
+        """Frames first..first+n-1 with the poses before them as predictions."""
+        return (torch.stack(imgs_d[first:first + n]), torch.stack(poses_d[first - 1:first + n - 1]),
+                lm_pos.expand(n, L, 3), lm_desc.expand(n, L, 8), lm_valid.expand(n, L),
+                lm_lvl.expand(n, L))
+
+    args4 = stacked(1, B)
+    # 10a: each kernel's batched launch against B single launches
+    ops = capture_kernel_operands(lambda: bs.step(*args4))
+    rows = {}
+    for key in kernels.LAUNCHES:
+        a, kw = ops[key]
+        r = check_batched(key, a, kw, B)
+        rows[key] = r
+        log(f"10a {key} {r['shape']}: exact={r['exact']} against single launches; against "
+            f"the plain version max_abs_err {r['max_abs_err']} inlier agreement "
+            f"{r['inlier_agreement']} ok={r['plain_ok']}; one batched launch {r['ms']:.4f} ms "
+            f"[{r['ms_lo']:.4f}, {r['ms_hi']:.4f}] vs {B} single launches {r['singles_ms']:.4f} ms "
+            f"through the wrapper; kernel alone {r['ms_kernel_only']:.4f} vs "
+            f"{r['singles_kernel_only_ms']:.4f} ms (plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.6f} ms {r['bound_by']})")
+        if not r["exact"]:
+            fail(f"10a: the batched {key} launch differs from {B} single launches")
+        if not r["plain_ok"]:
+            fail(f"10a: the batched {key} launch disagrees with its plain version")
+    # the batched step against FrameStep, stream by stream
+    out = bs.step(*args4)
+    singles = [fs.step(*(a[b] for a in args4)) for b in range(B)]
+    for b, o1 in enumerate(singles):
+        for f in o1._fields:
+            if not torch.equal(getattr(o1, f), getattr(out, f)[b]):
+                fail(f"10a: BatchFrameStep stream {b} differs from FrameStep in {f}")
+    step_ms = cuda_ms(lambda: bs.step(*args4), 20, repeats=5)
+    fs_ms = cuda_ms(lambda: [fs.step(*(a[b] for a in args4)) for b in range(B)], 20, repeats=5)
+    by_batch = {}
+    for nb in (1, 4, 8):
+        a = stacked(1, nb)
+        ms = cuda_ms(lambda: bs.step(*a), max(3, 40 // nb), repeats=5)[0]
+        by_batch[nb] = dict(ms_per_step=ms, ms_per_frame=ms / nb)
+    log(f"10a BatchFrameStep x{B}: {step_ms[0]:.3f} ms [{step_ms[1]:.3f}, {step_ms[2]:.3f}] per "
+        f"step vs {B} FrameStep calls {fs_ms[0]:.3f} ms [{fs_ms[1]:.3f}, {fs_ms[2]:.3f}]; per "
+        f"frame at B = 1, 4, 8: "
+        + ", ".join(f"{v['ms_per_frame']:.3f}" for v in by_batch.values()) + " ms")
+    # the main-path run: frames 1..36 as 9 batched steps of STREAMS frames
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = [bs.step(*stacked(first, B)) for first in range(1, 37, B)]
+    torch.cuda.synchronize()
+    batch_counts, batched = kernels.launch_counts(), kernels.batched_launch_counts()
+    inl = torch.cat([r.num_inliers for r in res]).cpu().numpy()
+    T_all = torch.cat([r.T_cw for r in res]).cpu().numpy()
+    terr = [float(np.linalg.norm(-T[:3, :3].T @ T[:3, 3] + poses[i][:3, :3].T @ poses[i][:3, 3]))
+            for i, T in zip(range(1, 37), T_all)]
+    log(f"10a main path: 36 frames in {len(res)} batched steps; inliers median "
+        f"{int(np.median(inl))} min {int(inl.min())}; translation error max over the first 5 "
+        f"{max(terr[:5]):.4f} m; launches {batch_counts}, batched {batched}")
+    if min(batch_counts.values()) == 0 or min(batched.values()) == 0:
+        fail(f"10a: a kernel was not launched batched on the main path: {batch_counts} {batched}")
+    if not np.isfinite(T_all).all() or int(inl[:5].min()) < 50 or max(terr[:5]) > 0.05:
+        fail("10a: BatchFrameStep lost track of the rendered orbit")
+
+    # 10b: StreamParallelStep, the streams on CUDA streams of this card
+    sp = StreamParallelStep(fs, make_mesh(B, dev))
+    res_sp = sp.step(*args4)
+    for b, o1 in enumerate(singles):
+        for f in o1._fields:
+            if not torch.equal(getattr(o1, f), getattr(res_sp, f)[b]):
+                fail(f"10b: stream {b} of StreamParallelStep differs from FrameStep in {f}")
+
+    def wall_ms(fn, reps=15):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times)), min(times), max(times)
+
+    round_ms = wall_ms(lambda: sp.step(*args4))
+    seq_ms = wall_ms(lambda: [fs.step(*(a[b] for a in args4)) for b in range(B)])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for first in range(1, 37, B):
+        sp.step(*stacked(first, B))
+    torch.cuda.synchronize()
+    sp_counts = kernels.launch_counts()
+    log(f"10b StreamParallelStep x{B} on {dev}: each stream equal to FrameStep; a round "
+        f"{round_ms[0]:.3f} ms [{round_ms[1]:.3f}, {round_ms[2]:.3f}] wall vs {B} FrameStep "
+        f"calls {seq_ms[0]:.3f} ms; main path launches {sp_counts}")
+    if min(sp_counts.values()) == 0:
+        fail(f"10b: a kernel was not launched on the stream-parallel path: {sp_counts}")
+    counts = {k: batch_counts[k] + sp_counts[k] for k in batch_counts}
+    summary = dict(streams=B, batch_step_ms=step_ms[0], batch_step_ms_lo=step_ms[1],
+                   batch_step_ms_hi=step_ms[2], framestep_x4_ms=fs_ms[0],
+                   batch_step_by_batch=by_batch, stream_round_ms=round_ms[0],
+                   stream_round_ms_lo=round_ms[1], stream_round_ms_hi=round_ms[2],
+                   sequential_round_ms=seq_ms[0], main_path_inliers_median=float(np.median(inl)),
+                   main_path_terr_max_first5_m=max(terr[:5]),
+                   launches_batch_step=batch_counts, launches_stream_parallel=sp_counts,
+                   wall_s=time.perf_counter() - t_phase)
+    return summary, counts, batched, rows
+
+
+def multi_session_config_dict(p=MULTI_SESSION_POINT) -> dict:
+    return {"Camera": {"name": f"syn{p['fx']:.0f}", "setup": "monocular",
+                       "model": "perspective", "fx": p["fx"], "fy": p["fx"],
+                       "cx": p["cols"] / 2, "cy": p["rows"] / 2, "cols": p["cols"],
+                       "rows": p["rows"], "fps": 20},
+            "Feature": {"max_num_keypts": p["keypoints"], "num_levels": p["levels"],
+                        "scale_factor": 1.2},
+            "LoopDetector": {"enabled": False}}
+
+
+def pooled_cost(built, cam) -> float:
+    """tests/test_multi_session.py's ``_pooled_cost``: the pooled robust
+    reprojection cost of a snapshot, in numpy."""
+    p = built["prob"]
+    T, X = p.T_cw.numpy(), p.X.numpy()
+    oc, ol = p.obs_cam.numpy(), p.obs_lm.numpy()
+    Xc = np.einsum("oij,oj->oi", T[oc][:, :3, :3], X[ol]) + T[oc][:, :3, 3]
+    z = np.maximum(Xc[:, 2], 1e-9)
+    pred = np.stack([cam.fx * Xc[:, 0] / z + cam.cx, cam.fy * Xc[:, 1] / z + cam.cy], -1)
+    c2 = np.sum((p.obs_uv.numpy()[:, :2] - pred) ** 2, -1) / p.obs_sigma2.numpy()
+    thr = 5.991
+    rho = np.where(c2 <= thr, c2, 2 * np.sqrt(thr * np.maximum(c2, 0)) - thr)
+    return float(np.sum(rho * (p.obs_mask.numpy() & (Xc[:, 2] > 1e-9))))
+
+
+def multi_session_phase(dev):
+    """Phase 10c: three mono sessions through ``MultiSessionRunner`` on the
+    card at MULTI_SESSION_POINT, as tests/test_multi_session.py's
+    ``multi_run`` and test_joint_distributed_ba_improves drive them: the run,
+    a perturbation of every map, one joint BA.  Then one snapshot solved
+    with 1 and 4 in-process shards (5 % cost gate) and through a
+    world-size-1 NCCL group (bit for bit the 1-shard solve).  Returns
+    (summary, launch counts of the run)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from openvslam_tpu_torch import kernels
+    from openvslam_tpu_torch.config import Config
+    from openvslam_tpu_torch.parallel import MultiSessionRunner, make_distributed_ba, make_mesh
+    from openvslam_tpu_torch.parallel import multihost
+    from openvslam_tpu_torch.parallel.distributed_ba import partition_problem
+    from openvslam_tpu_torch.system import System
+    from openvslam_tpu_torch.utils import synthetic
+
+    t_phase = time.perf_counter()
+    p = MULTI_SESSION_POINT
+    systems = [System(Config.from_dict(multi_session_config_dict()), device=dev)
+               for _ in p["seeds"]]
+    cam = systems[0].cam
+    frames = []
+    for seed in p["seeds"]:
+        scene = synthetic.PatchSceneRenderer(np.random.default_rng(seed), n_points=600,
+                                             center=(0, 0, 6), extent=(6, 4.5, 2.5),
+                                             rows=cam.rows, cols=cam.cols)
+        gt = synthetic.orbit_trajectory(p["frames"], radius=2.5, target=(0, 0, 6), arc=np.pi / 5)
+        frames.append([(scene.render(cam, gt[i]), i / 20.0) for i in range(p["frames"])])
+    runner = MultiSessionRunner(systems, mesh=make_mesh(1, dev))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    tracked = runner.run(frames)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = kernels.launch_counts()
+    shares = []
+    for i, tr in enumerate(tracked):
+        tr = np.array(tr)
+        shares.append(float(tr[int(np.argmax(tr)):].mean()) if tr.any() else 0.0)
+    log(f"10c MultiSessionRunner: {len(systems)} sessions x {p['frames']} frames in "
+        f"{run_s:.2f} s; tracked after the first pose {shares}; keyframes "
+        f"{[s.map_db.n_kfs for s in systems]}; launches {counts}")
+    if min(shares) <= 0.8:
+        fail(f"10c: a session tracked 0.8 or less of its frames: {shares}")
+    if min(counts.values()) == 0:
+        fail(f"10c: a kernel was not launched by the sessions: {counts}")
+    rng = np.random.default_rng(5)
+    for s in systems:
+        db = s.map_db
+        for k in db.valid_kf_ids():
+            if int(k) != db.origin_kf:
+                db.kf_pose_cw[int(k)][:3, 3] += rng.standard_normal(3) * 0.01
+        for lm_id in db.valid_lm_ids():
+            db.lm_pos[int(lm_id)] += rng.standard_normal(3).astype(np.float32) * 0.01
+    before = pooled_cost(runner.snapshot_problem(), cam)
+    t = time.perf_counter()
+    cost = runner.joint_bundle_adjust(iters=8)
+    torch.cuda.synchronize()
+    ba_ms = (time.perf_counter() - t) * 1e3
+    built = runner.snapshot_problem()
+    after = pooled_cost(built, cam)
+    C, L, O, _ = built["shapes"]
+    log(f"10c joint BA (8 iterations, pooled C {C} L {L} O {O}): pooled robust cost "
+        f"{before:.2f} -> {after:.2f} ({ba_ms:.1f} ms, solver cost {cost})")
+    if cost is None or not np.isfinite(cost) or not after < 0.8 * before:
+        fail("10c: the joint BA did not lower the pooled cost below 0.8 of its value")
+    # one snapshot, 1 and 4 shards in this process, and a world-size-1 NCCL group
+    solves = {}
+    for shards in (1, 4):
+        sp = partition_problem(built["prob"], shards)
+        opt = make_distributed_ba(cam, make_mesh(shards, dev), iters=4)
+        solves[shards] = opt(sp)
+        torch.cuda.synchronize()
+        solves[shards] += (cuda_ms(lambda: opt(sp), 1, warmup=0, repeats=3)[0],)
+    c1, c4 = float(solves[1][2]), float(solves[4][2])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        backend = dist.get_backend()
+        T_n, X_n, c_n = make_distributed_ba(cam, [dev], group=dist.group.WORLD, iters=4)(
+            partition_problem(built["prob"], 1))
+        torch.cuda.synchronize()
+    finally:
+        multihost.shutdown()
+    nccl_equal = (torch.equal(T_n, solves[1][0]) and torch.equal(X_n, solves[1][1])
+                  and torch.equal(c_n, solves[1][2]))
+    log(f"10c sharded solves (4 iterations): 1 shard cost {c1:.4f} ({solves[1][3]:.1f} ms), 4 "
+        f"shards {c4:.4f} ({solves[4][3]:.1f} ms), relative difference {abs(c1 - c4) / c1:.2e}; "
+        f"{backend} world size 1: bit for bit the 1-shard solve {nccl_equal}; group destroyed "
+        f"{not dist.is_initialized()}")
+    if abs(c1 - c4) / max(c1, 1e-9) >= 0.05:
+        fail("10c: the 1- and 4-shard solves differ by 5 % or more in cost")
+    if backend != "nccl" or not nccl_equal:
+        fail("10c: the NCCL world-size-1 solve differs from the 1-shard solve")
+    if dist.is_initialized():
+        fail("10c: the process group was not destroyed")
+    runner.shutdown()
+    summary = dict(sessions=len(systems), frames=p["frames"], tracked_after_first=shares,
+                   run_s=run_s, pooled_cost_before=before, pooled_cost_after=after,
+                   joint_ba_ms=ba_ms, pooled_shapes=[C, L, O], cost_1_shard=c1, cost_4_shards=c4,
+                   solve_ms_1_shard=solves[1][3], solve_ms_4_shards=solves[4][3],
+                   nccl_bitwise_equal=nccl_equal, wall_s=time.perf_counter() - t_phase)
+    return summary, counts
+
+
 def main() -> int:
     import faulthandler
 
@@ -2632,6 +3063,20 @@ def main() -> int:
     lm_lvl_d = torch.full((L,), -1, dtype=torch.int64, device=dev)
     imgs_d = [torch.from_numpy(im).to(dev) for im in images]
     poses_d = [torch.from_numpy(p.astype(np.float32)).to(dev) for p in poses]
+    lm_d = (lm_pos_d, lm_desc_d, lm_valid_d, lm_lvl_d)
+
+    if sys.argv[1:] == ["--phase10"]:
+        # phase 10 alone, with its gates, on phase 3's step (warmed up as phase 3 does)
+        fs.step(imgs_d[1], poses_d[0], *lm_d)
+        ms_out, ms_counts, ms_batched, batch_rows = multistream_phase(dev, fs, imgs_d, poses_d,
+                                                                      poses, lm_d)
+        sess_out, sess_counts = multi_session_phase(dev)
+        print(json.dumps({"multistream": ms_out, "launches": ms_counts,
+                          "batched_launches": ms_batched, "batched_rows": batch_rows,
+                          "multi_session": sess_out, "multi_session_launches": sess_counts}),
+              flush=True)
+        print(card, flush=True)
+        return 0
 
     report = {}
 
@@ -2966,18 +3411,26 @@ def main() -> int:
     fish_out, fish_counts, fish_rows = camera_phase(dev, "8")
     eq_out, eq_counts, eq_rows = camera_phase(dev, "8b")
 
+    # ---------------------------------------------------------------- 10
+    ms_out, ms_counts, ms_batched, batch_rows = multistream_phase(dev, fs, imgs_d, poses_d,
+                                                                  poses, lm_d)
+    sess_out, sess_counts = multi_session_phase(dev)
+    multi_counts = {k: ms_counts[k] + sess_counts[k] for k in ms_counts}
+
     # ---------------------------------------------------------------- out
     kernels_out = []
     depth_counts = dict(stereo_counts, rgbd=rgbd_counts, stereo_loop=sloop_counts,
                         fisheye=fish_counts, equirect=eq_counts, map_reuse=map_counts)
     for key, r in report.items():
         shapes = (r["shapes"] + [stereo_rows[key], rgbd_rows[key], fish_rows[key], map_rows[key]]
-                  + ([eq_rows[key]] if key in eq_rows else []))
+                  + ([eq_rows[key]] if key in eq_rows else []) + [batch_rows[key]])
         kernels_out.append(dict(
             r, shapes=shapes, max_abs_err=max(x["max_abs_err"] for x in shapes),
             launches=(fs_counts[key] + ts_counts[key] + sys_counts[key] + loop_counts[key]
                       + async_counts[key] + aloop_counts[key]
-                      + sum(c[key] for c in depth_counts.values())),
+                      + sum(c[key] for c in depth_counts.values()) + multi_counts[key]),
+            launches_multistream=multi_counts[key],
+            batched_launches_multistream=ms_batched[key], batched=batch_rows[key],
             **{f"launches_{run}": c[key] for run, c in depth_counts.items()},
             launches_framestep=fs_counts[key], launches_trackstep=ts_counts[key],
             launches_system=sys_counts[key],
@@ -2988,7 +3441,9 @@ def main() -> int:
         log(f"kernel {r['name']}: launches FrameStep {fs_counts[key]} TrackStep {ts_counts[key]} "
             f"System {sys_counts[key]} Loop {loop_counts[key]} System async {async_counts[key]} "
             f"Loop async {aloop_counts[key]} "
-            f"{' '.join(f'{run} {c[key]}' for run, c in depth_counts.items())}; max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
+            f"{' '.join(f'{run} {c[key]}' for run, c in depth_counts.items())} "
+            f"multistream {multi_counts[key]} (batched {ms_batched[key]}); "
+            f"max_abs_err {r['max_abs_err']}; {r['ms']:.4f} ms "
             f"({r['ms_kernel_only']:.4f} ms kernel alone) vs plain {r['plain_ms']:.3f} ms; "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     print(json.dumps({"profile": {"framestep": fs_prof, "trackstep": ts_prof,
@@ -3030,6 +3485,12 @@ def main() -> int:
                    map_reuse_ate_openvslam_m=map_out["localize_openvslam"]["ate_m_under_phase5_sim3"],
                    map_reuse_resume_ate_m=map_out["resume"]["ate_m_under_session_a_sim3"],
                    map_reuse_wall_s=map_out["wall_s"],
+                   batch_step_ms=ms_out["batch_step_ms"],
+                   batch_step_framestep_x4_ms=ms_out["framestep_x4_ms"],
+                   stream_round_ms=ms_out["stream_round_ms"],
+                   multi_session_tracked_min=min(sess_out["tracked_after_first"]),
+                   multi_session_joint_ba_ms=sess_out["joint_ba_ms"],
+                   multistream_wall_s=ms_out["wall_s"], multi_session_wall_s=sess_out["wall_s"],
                    seconds=time.perf_counter() - T0)
     print(json.dumps({"system": sys_out}), flush=True)
     print(json.dumps({"loop": loop_out}), flush=True)
@@ -3041,6 +3502,8 @@ def main() -> int:
     print(json.dumps({"fisheye": fish_out}), flush=True)
     print(json.dumps({"equirect": eq_out}), flush=True)
     print(json.dumps({"map_reuse": map_out}), flush=True)
+    print(json.dumps({"multistream": ms_out}), flush=True)
+    print(json.dumps({"multi_session": sess_out}), flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     print(json.dumps({"kernels": kernels_out}), flush=True)
     print(card, flush=True)

@@ -17,10 +17,14 @@
 // cell.  Both bounds are near a microsecond; what it really costs is
 // latency: barriers and the k_cell dependent rounds of each block.
 //
-// Design: one block per (level, 32x32 cell); a per-level table passed by
-// value maps a block to its level and holds each level's image and mask
-// pointers, so the levels need no concatenation.  The block stages a 40x40
-// tile (cell + 3-px ring + 1-px NMS halo) in shared memory and scores the
+// Design: one block per (frame, level, 32x32 cell); a per-level table passed
+// by value maps a block to its level and holds each level's image and mask
+// pointers, so the levels need no concatenation.  A batch of B frames of one
+// geometry is the grid's second dimension: each level's images (and masks)
+// lie frame after frame in one (B, h, w) block, and blockIdx.y picks the
+// frame; the per-frame code is the same for every B, so a batched launch
+// writes each frame's pools bit for bit as a launch of that frame alone.
+// The block stages a 40x40 tile (cell + 3-px ring + 1-px NMS halo) in shared memory and scores the
 // cell and a 1-px ring around it (34x34 positions).  Per position, the 16
 // ring differences give bright and dark pass masks at the lower threshold;
 // a pixel with no 9-contiguous run in either is not a corner at either
@@ -142,14 +146,16 @@ fast_pools_kernel(LevelTable t, float thr_hi, float thr_lo, float* __restrict__ 
   __shared__ unsigned part[2][WARPS];
 
   const int b = blockIdx.x;
+  const int frame = blockIdx.y;
   int l = 0;
   while (l + 1 < t.num_levels && b >= t.cell_start[l + 1]) ++l;
   const int c = b - t.cell_start[l];
   const int n_cells = t.cell_start[l + 1] - t.cell_start[l];
   const int y0 = (c / t.cells_x[l]) * CELL, x0 = (c % t.cells_x[l]) * CELL;
   const int h = t.height[l], w = t.width[l];
-  const float* __restrict__ img = t.img[l];
-  const unsigned char* __restrict__ mask = t.mask[l];
+  const size_t frame_px = static_cast<size_t>(frame) * h * w;
+  const float* __restrict__ img = t.img[l] + frame_px;
+  const unsigned char* __restrict__ mask = t.mask[l] != nullptr ? t.mask[l] + frame_px : nullptr;
 
   for (int i = threadIdx.x; i < TILE * TILE; i += THREADS) {
     const int gy = y0 - PAD + i / TILE, gx = x0 - PAD + i % TILE;
@@ -198,7 +204,7 @@ fast_pools_kernel(LevelTable t, float thr_hi, float thr_lo, float* __restrict__ 
   // per-cell top-k: k rounds of a block maximum; the owner retires the winner
   const int k = t.k_cell[l];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t row = static_cast<size_t>(l) * t.vmax;
+  const size_t row = (static_cast<size_t>(frame) * t.num_levels + l) * t.vmax;
   for (int r = 0; r < k; ++r) {
     unsigned m = key[0];
 #pragma unroll
@@ -229,12 +235,15 @@ fast_pools_kernel(LevelTable t, float thr_hi, float thr_lo, float* __restrict__ 
 
 }  // namespace
 
-extern "C" int fast_cell_pools(LevelTable t, float thr_hi, float thr_lo, float* vals,
+// `batch` frames of one geometry: t.img[l] (and t.mask[l]) point at (batch,
+// h, w) blocks; vals and idxs are (batch, num_levels, vmax).
+extern "C" int fast_cell_pools(LevelTable t, int batch, float thr_hi, float thr_lo, float* vals,
                                long long* idxs, void* stream) {
-  if (t.num_levels < 1 || t.num_levels > MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
+  if (t.num_levels < 1 || t.num_levels > MAX_LEVELS || batch < 0 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = t.cell_start[t.num_levels];
-  if (blocks > 0) {
-    fast_pools_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (blocks > 0 && batch > 0) {
+    fast_pools_kernel<<<dim3(blocks, batch), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         t, thr_hi, thr_lo, vals, idxs);
   }
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,7 @@
 // everything rather than the distances.
 //
 // Design: bin the keypoints, then search only the cells near each row.
-// * Bin kernel (one block): each valid keypoint's cell on a grid of square
+// * Bin kernel (one block a problem): each valid keypoint's cell on a grid of square
 //   cells of power-of-two side over the image (ops/match.py bin_grid), with
 //   coordinates outside the grid clamped into its border cells; a counting
 //   sort (count with shared atomics, one-block scan, scatter of keypoint
@@ -36,6 +36,11 @@
 //   ties go to the lowest index as in the plain version.
 // * Epilogue kernel: max_dist, the ratio test and the cross-check, exactly
 //   as match_kernel.py:177-187.
+// A batch of B problems of one shape (L, K and grid) is one launch of each
+// kernel: blockIdx.y (the bin kernel: blockIdx.x) picks the problem, whose
+// operands, scratch and outputs lie problem after problem; the per-problem
+// code is unchanged, so a batched launch gives each problem's idx and dist
+// bit for bit as a launch of that problem alone.
 // Gated pairs count as distance 1023 (the TPU kernel's _LARGE_D), which the
 // epilogue maps back to ops/match.py LARGE, so idx and dist equal the plain
 // version's (ops/match.py projection_scale_match_plain), ties included.
@@ -58,6 +63,11 @@ struct Grid {
   int gw, gh;
 };
 
+// per-problem element strides of the operands and of the scratch
+struct Strides {
+  int L, K, scratch;
+};
+
 // floor(x / cell) clamped to [0, n): NaN goes to 0, +-inf to the edges
 // (ops/match.py _grid_coord)
 __device__ __forceinline__ int grid_coord(float x, float inv_cell, int n) {
@@ -73,9 +83,14 @@ __device__ __forceinline__ int level_at(const void* p, int i, int is64) {
 
 __global__ void __launch_bounds__(BIN_THREADS)
 match_bin_kernel(const float2* __restrict__ b_xy, const unsigned char* __restrict__ b_valid,
-                 int K, Grid g, int* __restrict__ cell_start, int* __restrict__ cell_kp,
-                 int* __restrict__ col_min) {
+                 int K, Grid g, int* __restrict__ scratch, int scratch_stride, int L) {
   __shared__ int s_cur[MAX_CELLS];
+  const size_t prob = blockIdx.x;
+  b_xy += prob * K;
+  b_valid += prob * K;
+  int* __restrict__ cell_start = scratch + prob * scratch_stride;
+  int* __restrict__ cell_kp = cell_start + g.gw * g.gh + 1;
+  int* __restrict__ col_min = cell_kp + K + 2 * L;
   __shared__ int s_warp[BIN_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nc = g.gw * g.gh;
@@ -139,10 +154,26 @@ match_rows_kernel(const uint32_t* __restrict__ a_desc, const uint32_t* __restric
                   int level64, const int* __restrict__ cell_start,
                   const int* __restrict__ cell_kp, int L, Grid g, int col_mul, int row_mul,
                   int* __restrict__ row_best, int* __restrict__ row_second,
-                  int* __restrict__ col_min) {
+                  int* __restrict__ col_min, Strides st) {
   const int row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= L) return;
+  const size_t prob = blockIdx.y;
+  a_desc += prob * st.L * 8;
+  b_desc += prob * st.K * 8;
+  a_uv += prob * st.L;
+  a_vis += prob * st.L;
+  a_radius += prob * st.L;
+  a_pred = pred64 ? static_cast<const void*>(static_cast<const long long*>(a_pred) + prob * st.L)
+                  : static_cast<const void*>(static_cast<const int*>(a_pred) + prob * st.L);
+  b_xy += prob * st.K;
+  b_level = level64 ? static_cast<const void*>(static_cast<const long long*>(b_level) + prob * st.K)
+                    : static_cast<const void*>(static_cast<const int*>(b_level) + prob * st.K);
+  cell_start += prob * st.scratch;
+  cell_kp += prob * st.scratch;
+  row_best += prob * st.scratch;
+  row_second += prob * st.scratch;
+  col_min += prob * st.scratch;
   // gated column 0 at LARGE_D stands in for every gated pair (K >= 2)
   int best = LARGE_D * col_mul;
   int second = LARGE_D;
@@ -207,9 +238,16 @@ __global__ void match_epilogue_kernel(const int* __restrict__ row_best,
                                       const int* __restrict__ row_second,
                                       const int* __restrict__ col_min, int L, int col_mul,
                                       int row_mul, int max_dist, float ratio, int cross_check,
-                                      int* __restrict__ idx, int* __restrict__ dist) {
+                                      int* __restrict__ idx, int* __restrict__ dist,
+                                      int scratch_stride) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= L) return;
+  const size_t prob = blockIdx.y;
+  row_best += prob * scratch_stride;
+  row_second += prob * scratch_stride;
+  col_min += prob * scratch_stride;
+  idx += prob * L;
+  dist += prob * L;
   const int p = row_best[row];
   const int bi = p % col_mul;
   int bd = p / col_mul;
@@ -225,42 +263,45 @@ __global__ void match_epilogue_kernel(const int* __restrict__ row_best,
 
 }  // namespace
 
-// a_desc (L,8) / b_desc (K,8) packed int32; a_uv (L,2) f32, a_vis (L,)
-// bool, a_radius (L,) f32, a_pred (L,) int32 or int64 (pred64); b_xy (K,2)
-// f32, b_level (K,) int32 or int64 (level64), b_valid (K,) bool.  The grid
-// has gw x gh cells of side cell (a power of two).  scratch holds
-// gw*gh + 1 + 2K + 2L int32 (ops/match.py scratch_size).  Writes idx (L,)
-// and dist (L,).  Returns a cudaError_t.
-extern "C" int projection_match(const int* a_desc, const int* b_desc, const float* a_uv,
+// B problems of one shape, each laid out after the one before it: a_desc
+// (B,L,8) / b_desc (B,K,8) packed int32; a_uv (B,L,2) f32, a_vis (B,L)
+// bool, a_radius (B,L) f32, a_pred (B,L) int32 or int64 (pred64); b_xy
+// (B,K,2) f32, b_level (B,K) int32 or int64 (level64), b_valid (B,K) bool.
+// The grid has gw x gh cells of side cell (a power of two).  scratch holds B
+// x (gw*gh + 1 + 2K + 2L) int32 (ops/match.py scratch_size).  Writes idx
+// (B,L) and dist (B,L).  Returns a cudaError_t.
+extern "C" int projection_match(int B, const int* a_desc, const int* b_desc, const float* a_uv,
                                 const unsigned char* a_vis, const float* a_radius,
                                 const void* a_pred, int pred64, const float* b_xy,
                                 const void* b_level, int level64, const unsigned char* b_valid,
                                 int L, int K, float cell, int gw, int gh, int col_mul,
                                 int row_mul, int max_dist, float ratio, int cross_check,
                                 int* scratch, int* idx, int* dist, void* stream) {
-  if (L <= 0) return static_cast<int>(cudaGetLastError());
-  if (K < 2 || gw < 1 || gh < 1 || gw * gh > MAX_CELLS || !(cell > 0.f))
+  if (L <= 0 || B == 0) return static_cast<int>(cudaGetLastError());
+  if (B < 0 || B > 65535 || K < 2 || gw < 1 || gh < 1 || gw * gh > MAX_CELLS || !(cell > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Grid g{cell, 1.f / cell, gw, gh};
+  const Strides st{L, K, gw * gh + 1 + 2 * K + 2 * L};
+  // problem 0's scratch; the kernels step st.scratch words per problem
   int* cell_start = scratch;
   int* cell_kp = cell_start + gw * gh + 1;
   int* row_best = cell_kp + K;
   int* row_second = row_best + L;
   int* col_min = row_second + L;
-  match_bin_kernel<<<1, BIN_THREADS, 0, s>>>(reinterpret_cast<const float2*>(b_xy), b_valid, K,
-                                             g, cell_start, cell_kp, col_min);
+  match_bin_kernel<<<B, BIN_THREADS, 0, s>>>(reinterpret_cast<const float2*>(b_xy), b_valid, K,
+                                             g, scratch, st.scratch, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  match_rows_kernel<<<(L + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
+  match_rows_kernel<<<dim3((L + ROW_WARPS - 1) / ROW_WARPS, B), ROW_WARPS * 32, 0, s>>>(
       reinterpret_cast<const uint32_t*>(a_desc), reinterpret_cast<const uint32_t*>(b_desc),
       reinterpret_cast<const float2*>(a_uv), a_vis, a_radius, a_pred, pred64,
       reinterpret_cast<const float2*>(b_xy), b_level, level64, cell_start, cell_kp, L, g,
-      col_mul, row_mul, row_best, row_second, col_min);
+      col_mul, row_mul, row_best, row_second, col_min, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  match_epilogue_kernel<<<(L + 255) / 256, 256, 0, s>>>(row_best, row_second, col_min, L,
-                                                        col_mul, row_mul, max_dist, ratio,
-                                                        cross_check, idx, dist);
+  match_epilogue_kernel<<<dim3((L + 255) / 256, B), 256, 0, s>>>(
+      row_best, row_second, col_min, L, col_mul, row_mul, max_dist, ratio, cross_check, idx,
+      dist, st.scratch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,6 +51,10 @@
 //   rows i = tid + k * 512 again, and the active set lives in the inl_out
 //   bytes of those rows (each row read and written by one thread only)
 //   until the last pass overwrites them.
+// * A batch of B problems of one shape (N and observation columns) is one
+//   launch of B blocks: block b offsets every operand and output by its
+//   problem and runs the code above unchanged, so each problem's pose,
+//   inliers, chi2 and count are bit for bit those of a launch of it alone.
 // All arithmetic is float32; block sums run in another order than the
 // plain version, so results agree to float32 rounding, not bit for bit.
 #include <cuda_runtime.h>
@@ -303,6 +307,18 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ X,
   __shared__ float s_try[12];    // trial pose
   __shared__ int s_cnt[WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  {
+    const size_t prob = blockIdx.x;
+    T_init += prob * 16;
+    X += prob * N * 3;
+    obs += prob * N * OC;
+    sigma2 += prob * N;
+    mask += prob * N;
+    T_out += prob * 16;
+    c2_out += prob * N;
+    inl_out += prob * N;
+    n_out += prob;
+  }
   if (tid < 12) s_T[tid] = T_init[tid];
 
   int M = N, cnt = 0;
@@ -499,22 +515,25 @@ pose_lm_kernel(const float* __restrict__ T_init, const float* __restrict__ X,
 
 }  // namespace
 
-// One pose problem: T_init (4,4) f32, X (N,3), obs (N,obs_cols) with
-// obs_cols 2 (mono) or 3 (u_right < 0 marks a mono observation), sigma2
-// (N,) f32, mask (N,) bool.  Writes T_out (4,4), c2_out (N,), inl_out (N,)
-// bool and n_out (one int64).  Returns a cudaError_t.
-extern "C" int pose_lm(const float* T_init, const float* X, const float* obs, int obs_cols,
-                       const float* sigma2, const unsigned char* mask, int N, float fx,
-                       float fy, float cx, float cy, float fxb, float chi2, int rounds,
+// B pose problems of one shape, each laid out after the one before it:
+// T_init (B,4,4) f32, X (B,N,3), obs (B,N,obs_cols) with obs_cols 2 (mono)
+// or 3 (u_right < 0 marks a mono observation), sigma2 (B,N) f32, mask (B,N)
+// bool.  Writes T_out (B,4,4), c2_out (B,N), inl_out (B,N) bool and n_out
+// (B int64).  Returns a cudaError_t.
+extern "C" int pose_lm(int B, const float* T_init, const float* X, const float* obs,
+                       int obs_cols, const float* sigma2, const unsigned char* mask, int N,
+                       float fx, float fy, float cx, float cy, float fxb, float chi2, int rounds,
                        int iters, float* T_out, float* c2_out, unsigned char* inl_out,
                        long long* n_out, void* stream) {
-  if (N < 0 || (obs_cols != 2 && obs_cols != 3)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 0 || N < 0 || (obs_cols != 2 && obs_cols != 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
   const bool regs = N <= THREADS * (obs_cols == 3 ? PER_STEREO : PER_MONO);
   const auto fn = obs_cols == 3
                       ? (regs ? pose_lm_kernel<PER_STEREO, true> : pose_lm_kernel<0, true>)
                       : (regs ? pose_lm_kernel<PER_MONO, false> : pose_lm_kernel<0, false>);
   const Cam cam{fx, fy, cx, cy, fxb, chi2};
-  fn<<<1, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       T_init, X, obs, sigma2, mask, N, cam, rounds, iters, T_out, c2_out, inl_out, n_out);
   return static_cast<int>(cudaGetLastError());
 }

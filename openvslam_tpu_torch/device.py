@@ -16,3 +16,12 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index filled in (a bare "cuda" is the current
+    card), so that two names of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -11,7 +11,9 @@ parallel) and bound with ``ctypes``.  Nothing here runs at import time.
 kernel (``count_launch``, under a lock: the tracking thread and the loop
 worker launch kernels at the same time), and ``launch_counts_by_thread``
 splits the same counts by the launching thread's name; the plain PyTorch
-versions never touch them.
+versions never touch them.  Every kernel takes a batch of problems in one
+launch; ``BATCHED_LAUNCHES`` counts, per kernel, the launches that carried
+more than one problem (a subset of ``LAUNCHES``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # K1 (now the fused detect kernel) keeps its first key, so launch records line up
 LAUNCHES = {"fast_score_maps": 0, "projection_match": 0, "pose_lm": 0}
+BATCHED_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 _BY_THREAD: dict = {}           # thread name -> {kernel: launches}
 _count_lock = threading.Lock()
 
@@ -53,12 +56,14 @@ class LevelTable(ctypes.Structure):
                 ("img", _P * MAX_LEVELS), ("mask", _P * MAX_LEVELS)]
 
 
+# every entry takes a batch of problems of one shape (the batch count is the
+# first integer after the table for K1, the first argument for K2 and K3)
 _SIGNATURES = {
-    "fast": ("fast_cell_pools", [LevelTable, _F, _F, _P, _P, _P]),
-    "match": ("projection_match", [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+    "fast": ("fast_cell_pools", [LevelTable, _I, _F, _F, _P, _P, _P]),
+    "match": ("projection_match", [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
                                    _I, _I, _F, _I, _I, _I, _I, _I, _F, _I,
                                    _P, _P, _P, _P]),
-    "pose_lm": ("pose_lm", [_P, _P, _P, _I, _P, _P, _I,
+    "pose_lm": ("pose_lm", [_I, _P, _P, _P, _I, _P, _P, _I,
                             _F, _F, _F, _F, _F, _F, _I, _I,
                             _P, _P, _P, _P, _P]),
 }
@@ -68,10 +73,13 @@ _libs: dict = {}
 BUILD_LOG: dict = {}
 
 
-def count_launch(name: str) -> None:
-    """Count one launch of kernel ``name`` by the calling thread."""
+def count_launch(name: str, batch: int = 1) -> None:
+    """Count one launch of kernel ``name`` (over ``batch`` problems) by the
+    calling thread."""
     with _count_lock:
         LAUNCHES[name] += 1
+        if batch > 1:
+            BATCHED_LAUNCHES[name] += 1
         per = _BY_THREAD.setdefault(threading.current_thread().name, dict.fromkeys(LAUNCHES, 0))
         per[name] += 1
 
@@ -80,12 +88,18 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            BATCHED_LAUNCHES[k] = 0
         _BY_THREAD.clear()
 
 
 def launch_counts() -> dict:
     with _count_lock:
         return dict(LAUNCHES)
+
+
+def batched_launch_counts() -> dict:
+    with _count_lock:
+        return dict(BATCHED_LAUNCHES)
 
 
 def launch_counts_by_thread() -> dict:

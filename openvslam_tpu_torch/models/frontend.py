@@ -10,12 +10,18 @@ keypoint structure of arrays:
     desc_u32  (K,8) i32   packed rBRIEF (uint32 bit patterns)
     valid     (K,)  bool
 
+``extract_batch`` takes B frames (B,H,W) of one geometry and returns the
+same fields with a leading B, each frame's bit for bit ``extract``'s: the
+pyramid, blur, IC angles and rBRIEF run over the batch in elementwise
+steps and gathers, and kernel K1 runs once for all levels of all frames.
+
 Invalid slots keep their (meaningless) positions, as in the JAX package;
 their descriptors are zeroed.  The unpacked int8 bits are not produced:
 the matcher (kernel K2) reads the packed words.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -34,7 +40,7 @@ class Keypoints(NamedTuple):
 
     @property
     def capacity(self):
-        return self.xy.shape[0]
+        return self.xy.shape[-2]
 
 
 def level_budgets(max_keypts: int, num_levels: int, scale: float):
@@ -68,12 +74,25 @@ class OrbFrontend:
 
     def extract(self, image_u8: torch.Tensor, mask: torch.Tensor | None = None) -> Keypoints:
         """(H,W) u8 (and an optional (H,W) mask, > 0 = usable) -> Keypoints."""
+        return self._extract(image_u8, mask)
+
+    def extract_batch(self, images_u8: torch.Tensor,
+                      masks: torch.Tensor | None = None) -> Keypoints:
+        """(B,H,W) u8 (and optional (B,H,W) masks) -> Keypoints with a
+        leading batch axis, equal per frame to ``extract``."""
+        if torch.as_tensor(images_u8).ndim != 3:
+            raise ValueError("extract_batch takes (B,H,W) images")
+        return self._extract(images_u8, masks)
+
+    def _extract(self, image_u8, mask) -> Keypoints:
+        """One frame (H,W) or a batch (B,H,W): the same steps over the
+        trailing two axes."""
         img = torch.as_tensor(image_u8, device=self.device).to(torch.float32)
         levels = pyramid.build_pyramid(img, self.num_levels, self.scale_factor)
         lvl_masks = None
         if mask is not None:
             m = torch.as_tensor(mask, device=self.device)
-            lvl_masks = [pyramid.resize_nearest(m, tuple(lv.shape)) for lv in levels]
+            lvl_masks = [pyramid.resize_nearest(m, tuple(lv.shape[-2:])) for lv in levels]
         dets = fast.detect_levels(levels, self.ini_fast_thr, self.min_fast_thr,
                                   self.budgets, cell=self.cell, masks=lvl_masks)
         xs, rs, ans, descs, vs = [], [], [], [], []
@@ -86,7 +105,9 @@ class OrbFrontend:
             xs.append(xy * self.scales[l])
             rs.append(resp)
             vs.append(valid)
-        valid = torch.cat(vs)
-        d32 = torch.where(valid[:, None], torch.cat(descs), torch.zeros((), dtype=torch.int32,
-                                                                          device=self.device))
-        return Keypoints(torch.cat(xs), torch.cat(rs), self._level, torch.cat(ans), d32, valid)
+        cat = functools.partial(torch.cat, dim=img.ndim - 2)     # the keypoint axis
+        valid = cat(vs)
+        d32 = torch.where(valid[..., None], cat(descs), torch.zeros((), dtype=torch.int32,
+                                                                     device=self.device))
+        level = self._level.expand(*img.shape[:-2], -1)
+        return Keypoints(cat(xs), cat(rs), level, cat(ans), d32, valid)

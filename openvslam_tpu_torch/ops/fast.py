@@ -170,12 +170,26 @@ def _level_table(shapes, budgets) -> kernels.LevelTable:
     return table
 
 
+def fast_cell_pools_plain_batch(level_imgs, thr_hi: float, thr_lo: float, budgets,
+                                cell: int = 32, masks=None):
+    """Plain version of a batched K1 launch: ``fast_cell_pools_plain`` on
+    each frame of levels (B,h,w) (and masks), results stacked to
+    (B, L, Vmax)."""
+    outs = [fast_cell_pools_plain([im[b] for im in level_imgs], thr_hi, thr_lo, budgets, cell,
+                                  None if masks is None else
+                                  [None if m is None else m[b] for m in masks])
+            for b in range(level_imgs[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def kernel_args(level_imgs, thr_hi: float, thr_lo: float, budgets, cell: int = KERNEL_CELL,
                 masks=None):
-    """Check the operands of one K1 launch and allocate its outputs.
-    Returns (ctypes arguments of ``fast_cell_pools`` in csrc/fast.cu,
-    (vals, idxs), tensors to keep alive); the arguments hold pointers that
-    must outlive the launch."""
+    """Check the operands of one K1 launch, over the (h,w) levels of one
+    frame or the (B,h,w) levels of a batch of B frames of one geometry, and
+    allocate its outputs.  Returns (ctypes arguments of ``fast_cell_pools``
+    in csrc/fast.cu, (vals, idxs) of shape (L, Vmax) or (B, L, Vmax),
+    tensors to keep alive); the arguments hold pointers that must outlive
+    the launch."""
     dev = level_imgs[0].device
     if cell != KERNEL_CELL:
         raise ValueError(f"K1 is built for {KERNEL_CELL}-px cells, got {cell}")
@@ -184,24 +198,29 @@ def kernel_args(level_imgs, thr_hi: float, thr_lo: float, budgets, cell: int = K
         raise ValueError(f"K1 takes integer thresholds in [0, 255], got {thr}")
     if len(budgets) != len(level_imgs) or (masks is not None and len(masks) != len(level_imgs)):
         raise ValueError("one budget (and mask) per level")
-    shapes = tuple(tuple(im.shape) for im in level_imgs)
+    single = level_imgs[0].ndim == 2
+    B = 1 if single else level_imgs[0].shape[0]
+    shapes = tuple(tuple(im.shape[-2:]) for im in level_imgs)
     table = kernels.LevelTable.from_buffer_copy(_level_table(shapes, tuple(budgets)))
     keep = list(level_imgs)
     for l, im in enumerate(level_imgs):
-        if im.dtype != torch.float32 or im.ndim != 2 or im.device != dev or not im.is_contiguous():
-            raise ValueError("levels must be contiguous 2-D float32 tensors on one device")
+        if (im.dtype != torch.float32 or im.ndim != (2 if single else 3) or im.device != dev
+                or not im.is_contiguous() or (not single and im.shape[0] != B)):
+            raise ValueError("levels must be contiguous float32 tensors on one device, "
+                             "all (h,w) or all (B,h,w)")
         table.img[l] = im.data_ptr()
         m = None if masks is None else masks[l]
         if m is not None:
-            if tuple(m.shape) != shapes[l] or m.device != dev:
+            if tuple(m.shape) != tuple(im.shape) or m.device != dev:
                 raise ValueError("a level's mask must have its shape and device")
             m = (m > 0).contiguous()
             keep.append(m)
             table.mask[l] = m.data_ptr()
-    vals = torch.empty((len(shapes), table.vmax), dtype=torch.float32, device=dev)
-    idxs = torch.empty((len(shapes), table.vmax), dtype=torch.int64, device=dev)
-    args = (table, *thr, vals.data_ptr(), idxs.data_ptr(), kernels.stream_ptr(dev))
-    return args, (vals, idxs), keep + [vals, idxs]
+    vals = torch.empty((B, len(shapes), table.vmax), dtype=torch.float32, device=dev)
+    idxs = torch.empty((B, len(shapes), table.vmax), dtype=torch.int64, device=dev)
+    args = (table, B, *thr, vals.data_ptr(), idxs.data_ptr(), kernels.stream_ptr(dev))
+    out = (vals[0], idxs[0]) if single else (vals, idxs)
+    return args, out, keep + [vals, idxs]
 
 
 def fast_cell_pools(level_imgs, thr_hi: float, thr_lo: float, budgets, cell: int = 32,
@@ -210,22 +229,24 @@ def fast_cell_pools(level_imgs, thr_hi: float, thr_lo: float, budgets, cell: int
     the preference for high-threshold corners, 3x3 NMS, the optional masks
     (> 0 = usable) and the per-cell top-k.  Returns (vals (L, Vmax) f32,
     padded with -inf; idxs (L, Vmax) i64 into each level's padded
-    (gh, gw, cell, cell) layout, padded with 0).
+    (gh, gw, cell, cell) layout, padded with 0).  Levels of shape (B,h,w)
+    (B frames of one geometry, masks likewise) give (B, L, Vmax).
 
-    CPU tensors take the plain version (any float thresholds).  CUDA
-    tensors launch kernel K1 once for all levels; it takes levels of
-    integers in [0, 255] (the pyramid's) and integer thresholds in
-    [0, 255], which keep every score an integer its top-k keys can hold,
-    and raises on other thresholds or a cell other than 32.  Any other
-    device raises."""
+    CPU tensors take the plain version (any float thresholds; each frame in
+    turn).  CUDA tensors launch kernel K1 once for all levels of all frames;
+    it takes levels of integers in [0, 255] (the pyramid's) and integer
+    thresholds in [0, 255], which keep every score an integer its top-k keys
+    can hold, and raises on other thresholds or a cell other than 32.  Any
+    other device raises."""
     dev = level_imgs[0].device
     if dev.type == "cpu":
-        return fast_cell_pools_plain(level_imgs, thr_hi, thr_lo, budgets, cell, masks)
+        plain = fast_cell_pools_plain if level_imgs[0].ndim == 2 else fast_cell_pools_plain_batch
+        return plain(level_imgs, thr_hi, thr_lo, budgets, cell, masks)
     if dev.type != "cuda":
         raise RuntimeError(f"fast_cell_pools: unsupported device {dev}")
     args, out, _keep = kernel_args(level_imgs, thr_hi, thr_lo, budgets, cell, masks)
     kernels.check(kernels.library("fast")(*args), "fast_cell_pools")
-    kernels.count_launch("fast_score_maps")
+    kernels.count_launch("fast_score_maps", args[1])
     return out
 
 
@@ -249,20 +270,33 @@ def _finalize_selection(topv, sel, gw, cell: int):
 def select_from_pools(vals, idxs, shapes, budgets, cell: int = 32):
     """One stable descending sort over the pools of all levels (JAX's
     batched ``lax.top_k``); each level keeps its first ``budget`` winners,
-    decoded once for all levels.  Returns [(xy, resp, valid), ...]."""
+    decoded once for all levels.  Pools of a batch, (B, L, Vmax), are
+    sorted row by row in the same way.  Returns [(xy, resp, valid), ...],
+    each with the leading B of a batch."""
     geo = pool_geometry(tuple(tuple(s) for s in shapes), tuple(budgets), cell)
     kmax = max(budgets)
-    topv, topi = torch.sort(vals, dim=1, descending=True, stable=True)
-    topv, topi = topv[:, :kmax], topi[:, :kmax]
-    sel = torch.gather(idxs, 1, topi)
+    topv, topi = torch.sort(vals, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :kmax], topi[..., :kmax]
+    sel = torch.gather(idxs, -1, topi)
     xy, resp, valid = _finalize_selection(topv, sel, _cells_x_column(geo.cells_x, vals.device),
                                           cell)
-    return [(xy[l, :b], resp[l, :b], valid[l, :b]) for l, b in enumerate(budgets)]
+    return [(xy[..., l, :b, :], resp[..., l, :b], valid[..., l, :b])
+            for l, b in enumerate(budgets)]
 
 
 def detect_levels(level_imgs, ini_threshold: float, min_threshold: float,
                   budgets, cell: int = 32, masks=None) -> List[Tuple]:
     """All-pyramid detection: the candidate pools of every level (K1 on the
-    GPU), then one cross-level selection.  Returns [(xy, resp, valid), ...]."""
+    GPU), then one cross-level selection.  Levels (B,h,w) of B frames go
+    through one K1 launch.  Returns [(xy, resp, valid), ...]."""
     vals, idxs = fast_cell_pools(level_imgs, ini_threshold, min_threshold, budgets, cell, masks)
-    return select_from_pools(vals, idxs, [im.shape for im in level_imgs], budgets, cell)
+    return select_from_pools(vals, idxs, [im.shape[-2:] for im in level_imgs], budgets, cell)
+
+
+def detect_level_batch(imgs, ini_threshold: float, min_threshold: float, max_pts: int,
+                       cell: int = 32, masks=None):
+    """One level of B frames (B,H,W) (counterpart of ``detect_level_batch``):
+    one K1 launch over the batch on the GPU.  Returns (xy (B,max_pts,2),
+    response (B,max_pts), valid (B,max_pts))."""
+    return detect_levels([imgs], ini_threshold, min_threshold, [max_pts], cell,
+                         None if masks is None else [masks])[0]

@@ -200,22 +200,27 @@ def row_boxes(uv: torch.Tensor, radius: torch.Tensor, grid: BinGrid):
     return out[0], out[1], out[2], out[3]
 
 
-def scratch_size(L: int, K: int, grid: BinGrid) -> int:
-    """int32 words of K2's scratch: cell starts, binned keypoints, row best
-    and second, column minima."""
-    return grid.gw * grid.gh + 1 + 2 * K + 2 * L
+def scratch_size(L: int, K: int, grid: BinGrid, B: int = 1) -> int:
+    """int32 words of K2's scratch for B problems: per problem its cell
+    starts, binned keypoints, row best and second, column minima."""
+    return B * (grid.gw * grid.gh + 1 + 2 * K + 2 * L)
 
 
 def kernel_args(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_level, b_valid,
                 max_dist: int = HAMMING_DIST_THR_HIGH, ratio=None, cross_check: bool = True,
                 image_size=IMAGE_SIZE):
-    """Check the operands of one K2 launch and allocate its outputs and
-    scratch.  Returns (ctypes arguments of ``projection_match`` in
-    csrc/match.cu, (idx, dist), tensors to keep alive); the arguments hold
-    pointers into the operands, the scratch and the outputs, which must
-    outlive the launch."""
+    """Check the operands of one K2 launch, one problem (a_desc (L,8), ...)
+    or a batch of B of one shape (a_desc (B,L,8), ...), and allocate its
+    outputs and scratch.  Returns (ctypes arguments of ``projection_match``
+    in csrc/match.cu, (idx, dist) shaped as the operands, tensors to keep
+    alive); the arguments hold pointers into the operands, the scratch and
+    the outputs, which must outlive the launch."""
     dev = a_desc_u32.device
-    L, K = a_desc_u32.shape[0], b_desc_u32.shape[0]
+    single = a_desc_u32.ndim == 2
+    ops = (a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_level, b_valid)
+    if single:
+        ops = tuple(t[None] for t in ops)
+    B, L, K = ops[0].shape[0], ops[0].shape[1], ops[1].shape[1]
     if K < 2:
         raise ValueError("projection_scale_match needs at least two keypoints")
     if not (0 <= max_dist < 1023):
@@ -234,26 +239,35 @@ def kernel_args(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_lev
         return t
 
     levels = (torch.int64, i32)
-    keep = [arg(a_desc_u32, (i32,), (L, 8)), arg(b_desc_u32, (i32,), (K, 8)),
-            arg(uv, (f32,), (L, 2)), arg(vis, (torch.bool,), (L,)), arg(radius, (f32,), (L,)),
-            arg(pred_level, levels, (L,)), arg(b_xy, (f32,), (K, 2)),
-            arg(b_level, levels, (K,)), arg(b_valid, (torch.bool,), (K,))]
+    keep = [arg(t, dts, (B,) + shape) for t, dts, shape in zip(
+        ops, ((i32,), (i32,), (f32,), (torch.bool,), (f32,), levels, (f32,), levels,
+              (torch.bool,)),
+        ((L, 8), (K, 8), (L, 2), (L,), (L,), (L,), (K, 2), (K,), (K,)))]
     a_desc, b_desc, a_uv, a_vis, a_r, a_pred, bxy, blvl, bval = keep
     if b_desc.data_ptr() % 16:
         raise ValueError("projection_scale_match: b_desc must be 16-byte aligned")
     grid = bin_grid(*image_size)
     # one allocation: the scratch, then idx and dist
-    n_scratch = scratch_size(L, K, grid)
-    buf = torch.empty(n_scratch + 2 * L, dtype=i32, device=dev)
+    n_scratch = scratch_size(L, K, grid, B)
+    buf = torch.empty(n_scratch + 2 * B * L, dtype=i32, device=dev)
     base = buf.data_ptr()
-    args = (a_desc.data_ptr(), b_desc.data_ptr(), a_uv.data_ptr(), a_vis.data_ptr(),
+    args = (B, a_desc.data_ptr(), b_desc.data_ptr(), a_uv.data_ptr(), a_vis.data_ptr(),
             a_r.data_ptr(), a_pred.data_ptr(), int(a_pred.dtype == torch.int64),
             bxy.data_ptr(), blvl.data_ptr(), int(blvl.dtype == torch.int64), bval.data_ptr(),
             L, K, float(grid.cell), grid.gw, grid.gh, col_mul, row_mul, int(max_dist),
             -1.0 if ratio is None else float(ratio), int(bool(cross_check)),
-            base, base + 4 * n_scratch, base + 4 * (n_scratch + L), kernels.stream_ptr(dev))
-    out = buf[n_scratch:].view(2, L)
-    return args, (out[0], out[1]), keep + [buf]
+            base, base + 4 * n_scratch, base + 4 * (n_scratch + B * L), kernels.stream_ptr(dev))
+    out = buf[n_scratch:].view(2, B, L)
+    idx, dist = (out[0][0], out[1][0]) if single else (out[0], out[1])
+    return args, (idx, dist), keep + [buf]
+
+
+def projection_scale_match_plain_batch(*ops, **kw):
+    """Plain version of a batched K2 launch: ``projection_scale_match_plain``
+    on each of the B problems, results stacked."""
+    outs = [projection_scale_match_plain(*(t[b] for t in ops), **kw)
+            for b in range(ops[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def projection_scale_match(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level,
@@ -270,18 +284,21 @@ def projection_scale_match(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level,
     rows) sets the extent of the kernel's keypoint grid: any extent gives
     the same result, the camera's keeps each row's search short.
     Returns (idx_b (L,) int32 [-1 unmatched], dist (L,) int32 [LARGE]).
+    A batch of B problems of one shape (same L, K and image) carries a
+    leading B on every operand and on both results.
 
-    CPU tensors take the plain version; CUDA tensors launch kernel K2."""
+    CPU tensors take the plain version (each problem in turn); CUDA tensors
+    launch kernel K2 once for the whole batch."""
     dev = a_desc_u32.device
+    ops = (a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_level, b_valid)
+    kw = dict(max_dist=max_dist, ratio=ratio, cross_check=cross_check)
     if dev.type == "cpu":
-        return projection_scale_match_plain(
-            a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy, b_level, b_valid,
-            max_dist=max_dist, ratio=ratio, cross_check=cross_check)
+        if a_desc_u32.ndim == 3:
+            return projection_scale_match_plain_batch(*ops, **kw)
+        return projection_scale_match_plain(*ops, **kw)
     if dev.type != "cuda":
         raise RuntimeError(f"projection_scale_match: unsupported device {dev}")
-    args, out, _keep = kernel_args(a_desc_u32, b_desc_u32, uv, vis, radius, pred_level, b_xy,
-                                   b_level, b_valid, max_dist=max_dist, ratio=ratio,
-                                   cross_check=cross_check, image_size=image_size)
+    args, out, _keep = kernel_args(*ops, **kw, image_size=image_size)
     kernels.check(kernels.library("match")(*args), "projection_scale_match")
-    kernels.count_launch("projection_match")
+    kernels.count_launch("projection_match", args[0])
     return out

@@ -42,12 +42,24 @@ def get_pattern(name: str, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(get_pattern_np(name)).to(device)
 
 
+def _frame_base(img: torch.Tensor, ndim: int) -> torch.Tensor | int:
+    """Flat offset of each frame of a batch img (B,H,W), shaped to broadcast
+    against index tensors of ``ndim`` dims with a leading B (0 for one
+    (H,W) image)."""
+    if img.ndim == 2:
+        return 0
+    h, w = img.shape[-2:]
+    base = torch.arange(img.shape[0], device=img.device) * (h * w)
+    return base.view(-1, *([1] * (ndim - 1)))
+
+
 def _gather_nearest(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour sample (round half to even, clamp to the image)."""
-    h, w = img.shape
+    """Nearest-neighbour sample (round half to even, clamp to the image);
+    img (H,W) or a batch (B,H,W) with xy (B,...,2)."""
+    h, w = img.shape[-2:]
     x = torch.clamp(torch.round(xy[..., 0]).to(torch.int64), 0, w - 1)
     y = torch.clamp(torch.round(xy[..., 1]).to(torch.int64), 0, h - 1)
-    return img.reshape(-1)[y * w + x]
+    return img.reshape(-1)[_frame_base(img, x.ndim) + y * w + x]
 
 
 def ic_moment_maps(img: torch.Tensor):
@@ -69,36 +81,48 @@ def ic_moments_at(img: torch.Tensor, xy: torch.Tensor):
     """The values of ``ic_moment_maps`` at the nearest pixels of xy (N,2),
     from one (N,31,31) patch gather instead of four full-image convolutions.
     Every term is an integer and every sum stays below 2**24, so the result
-    equals the maps' values bit for bit in any summation order."""
-    h, w = img.shape
+    equals the maps' values bit for bit in any summation order.  A batch
+    img (B,H,W) takes xy (B,N,2) and gives (B,N) moments."""
+    h, w = img.shape[-2:]
     r = PATCH_RADIUS
-    x0 = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), 0, w - 1)
-    y0 = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), 0, h - 1)
+    x0 = torch.clamp(torch.round(xy[..., 0]).to(torch.int64), 0, w - 1)
+    y0 = torch.clamp(torch.round(xy[..., 1]).to(torch.int64), 0, h - 1)
     offs = torch.arange(-r, r + 1, device=img.device)
-    ys = y0[:, None, None] + offs[None, :, None]
-    xs = x0[:, None, None] + offs[None, None, :]
+    ys = y0[..., None, None] + offs[:, None]
+    xs = x0[..., None, None] + offs[None, :]
     inside = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
-    patch = torch.where(
-        inside, img.reshape(-1)[(ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1))],
-        torch.zeros((), dtype=img.dtype, device=img.device))
+    flat = _frame_base(img, ys.ndim) + ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)
+    patch = torch.where(inside, img.reshape(-1)[flat],
+                        torch.zeros((), dtype=img.dtype, device=img.device))
     ramp = offs.to(img.dtype)
-    m10 = (patch.sum(1) * ramp[None, :]).sum(1)
-    m01 = (patch.sum(2) * ramp[None, :]).sum(1)
+    m10 = (patch.sum(-2) * ramp).sum(-1)
+    m01 = (patch.sum(-1) * ramp).sum(-1)
     return m10, m01
 
 
+def per_frame(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn(*xs)`` for an elementwise transcendental function of tensors
+    with a leading batch axis, frame by frame on the CPU: its vectorized
+    loops round the elements past the last full vector another way than
+    those inside it, so a batch would not equal each frame's own call bit
+    for bit.  On the GPU every element takes the same path."""
+    if xs[0].device.type != "cpu" or xs[0].ndim < 2:
+        return fn(*xs)
+    return torch.stack([fn(*(x[b] for x in xs)) for b in range(xs[0].shape[0])])
+
+
 def ic_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """Intensity-centroid orientation at keypoints xy (N,2) -> angles (N,) rad."""
+    """Intensity-centroid orientation at keypoints xy (N,2) -> angles (N,) rad
+    (a batch: img (B,H,W), xy (B,N,2) -> (B,N))."""
     m10, m01 = ic_moments_at(img, xy)
-    return torch.atan2(m01, m10)
+    return per_frame(torch.atan2, m01, m10)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(N,256) {0,1} -> (N,8) int32 words holding the packed uint32 patterns
     (the JAX package's ``_pack_bits``; int64 arithmetic, then the bit
-    pattern stored as int32)."""
-    n = bits.shape[0]
-    words = bits.to(torch.int64).reshape(n, 8, 32)
+    pattern stored as int32); leading batch axes are kept."""
+    words = bits.to(torch.int64).reshape(*bits.shape[:-1], 8, 32)
     shifts = torch.arange(32, device=bits.device)
     v = torch.sum(words << shifts, dim=-1)
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
@@ -113,12 +137,13 @@ def unpack_bits_i8(packed: torch.Tensor) -> torch.Tensor:
 
 def brief_descriptors_gather(img_blurred: torch.Tensor, xy: torch.Tensor,
                              angles: torch.Tensor, pattern_name: str = "learned") -> torch.Tensor:
-    """Steered BRIEF via direct image gathers (512 point loads / keypoint)."""
+    """Steered BRIEF via direct image gathers (512 point loads / keypoint);
+    a batch img (B,H,W) takes xy (B,N,2), angles (B,N)."""
     pat = get_pattern(pattern_name, img_blurred.device)
-    c = torch.cos(angles)[:, None, None]
-    s = torch.sin(angles)[:, None, None]
-    px = pat[None, :, :, 0]
-    py = pat[None, :, :, 1]
-    pts = torch.stack([c * px - s * py, s * px + c * py], -1) + xy[:, None, None, :]
-    vals = _gather_nearest(img_blurred, pts)                   # (N,256,2)
+    c = per_frame(torch.cos, angles)[..., None, None]
+    s = per_frame(torch.sin, angles)[..., None, None]
+    px = pat[:, :, 0]
+    py = pat[:, :, 1]
+    pts = torch.stack([c * px - s * py, s * px + c * py], -1) + xy[..., None, None, :]
+    vals = _gather_nearest(img_blurred, pts)                   # (...,N,256,2)
     return pack_bits(vals[..., 0] < vals[..., 1])

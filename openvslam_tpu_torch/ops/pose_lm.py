@@ -199,49 +199,73 @@ def pose_lm_plain(T_init, X_w, obs_uvr, sigma2, mask, *, fx, fy, cx, cy, fxb,
     return _result(torch.stack(T), active, c2)
 
 
+def pose_lm_plain_batch(T_init, X_w, obs_uvr, sigma2, mask, **kw):
+    """Plain version of a batched K3 launch: ``pose_lm_plain`` on each of
+    the B problems of T_init (B,4,4), X_w (B,N,3), obs_uvr (B,N,2|3),
+    sigma2 (B,N), mask (B,N), results stacked."""
+    outs = [pose_lm_plain(*(t[b] for t in (T_init, X_w, obs_uvr, sigma2, mask)), **kw)
+            for b in range(X_w.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def kernel_args(T_init, X_w, obs_uvr, sigma2, mask, *, fx, fy, cx, cy, fxb, chi2_thr,
                 num_rounds=4, iters_per_round=10):
-    """Check the operands of one K3 launch and allocate its outputs.  Returns
-    (ctypes arguments of ``pose_lm`` in csrc/pose_lm.cu, (T_cw, inliers,
-    num_inliers, chi2), tensors to keep alive); the arguments hold pointers
-    into the given tensors and the outputs, which must outlive the launch."""
+    """Check the operands of one K3 launch, one problem (T (4,4), X (N,3),
+    ...) or a batch of B of one shape (T (B,4,4), X (B,N,3), ...), and
+    allocate its outputs.  Returns (ctypes arguments of ``pose_lm`` in
+    csrc/pose_lm.cu, (T_cw, inliers, num_inliers, chi2) shaped as the
+    operands, tensors to keep alive); the arguments hold pointers into the
+    given tensors and the outputs, which must outlive the launch."""
     dev = X_w.device
-    N = X_w.shape[0]
+    single = X_w.ndim == 2
+    if single:
+        T_init, X_w, obs_uvr, sigma2, mask = (t[None] for t in (T_init, X_w, obs_uvr, sigma2,
+                                                                mask))
+    B, N = X_w.shape[0], X_w.shape[1]
     f32 = torch.float32
-    ok = (T_init.shape == (4, 4) and X_w.shape == (N, 3) and obs_uvr.ndim == 2
-          and obs_uvr.shape[0] == N and obs_uvr.shape[1] in (2, 3)
-          and sigma2.shape == (N,) and mask.shape == (N,))
+    ok = (T_init.shape == (B, 4, 4) and X_w.shape == (B, N, 3) and obs_uvr.ndim == 3
+          and obs_uvr.shape[:2] == (B, N) and obs_uvr.shape[2] in (2, 3)
+          and sigma2.shape == (B, N) and mask.shape == (B, N))
     if not ok:
-        raise ValueError("pose_lm: expected T (4,4), X (N,3), obs (N,2|3), sigma2 (N,), mask (N,)")
+        raise ValueError("pose_lm: expected T ([B,]4,4), X ([B,]N,3), obs ([B,]N,2|3), "
+                         "sigma2 ([B,]N), mask ([B,]N)")
     for name, t, dt in (("T_init", T_init, f32), ("X_w", X_w, f32), ("obs", obs_uvr, f32),
                         ("sigma2", sigma2, f32), ("mask", mask, torch.bool)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"pose_lm: {name} must be a contiguous {dt} tensor on {dev}")
-    T = torch.empty((4, 4), dtype=f32, device=dev)
-    c2 = torch.empty(N, dtype=f32, device=dev)
-    inl = torch.empty(N, dtype=torch.bool, device=dev)
-    n = torch.empty((), dtype=torch.int64, device=dev)
-    args = (T_init.data_ptr(), X_w.data_ptr(), obs_uvr.data_ptr(), obs_uvr.shape[1],
+    T = torch.empty((B, 4, 4), dtype=f32, device=dev)
+    c2 = torch.empty((B, N), dtype=f32, device=dev)
+    inl = torch.empty((B, N), dtype=torch.bool, device=dev)
+    n = torch.empty(B, dtype=torch.int64, device=dev)
+    args = (B, T_init.data_ptr(), X_w.data_ptr(), obs_uvr.data_ptr(), obs_uvr.shape[2],
             sigma2.data_ptr(), mask.data_ptr(), N, float(fx), float(fy), float(cx),
             float(cy), float(fxb), float(chi2_thr), int(num_rounds), int(iters_per_round),
             T.data_ptr(), c2.data_ptr(), inl.data_ptr(), n.data_ptr(), kernels.stream_ptr(dev))
-    return args, (T, inl, n, c2), [T_init, X_w, obs_uvr, sigma2, mask]
+    out = (T, inl, n, c2)
+    if single:
+        out = tuple(t[0] for t in out)
+    return args, out, [T_init, X_w, obs_uvr, sigma2, mask]
 
 
 def pose_lm(T_init, X_w, obs_uvr, sigma2, mask, *, fx, fy, cx, cy, fxb,
             chi2_thr, num_rounds=4, iters_per_round=10):
     """Fused pose-only LM.  T_init (4,4), X_w (N,3), obs_uvr (N,2|3),
-    sigma2 (N,), mask (N,) bool.  CPU tensors take the plain version, CUDA
-    tensors launch kernel K3 (float32 contiguous operands, any N).
-    Returns (T_cw, inliers, num_inliers, chi2)."""
+    sigma2 (N,), mask (N,) bool, or a batch of B problems of one shape with
+    a leading B on every operand (T_init (B,4,4), ...).  CPU tensors take
+    the plain version (each problem in turn), CUDA tensors launch kernel K3
+    once, one block per problem (float32 contiguous operands, any N).
+    Returns (T_cw, inliers, num_inliers, chi2), with the leading B of a
+    batch."""
     dev = X_w.device
     kw = dict(fx=fx, fy=fy, cx=cx, cy=cy, fxb=fxb, chi2_thr=chi2_thr,
               num_rounds=num_rounds, iters_per_round=iters_per_round)
     if dev.type == "cpu":
+        if X_w.ndim == 3:
+            return pose_lm_plain_batch(T_init, X_w, obs_uvr, sigma2, mask, **kw)
         return pose_lm_plain(T_init, X_w, obs_uvr, sigma2, mask, **kw)
     if dev.type != "cuda":
         raise RuntimeError(f"pose_lm: unsupported device {dev}")
     args, out, _keep = kernel_args(T_init, X_w, obs_uvr, sigma2, mask, **kw)
     kernels.check(kernels.library("pose_lm")(*args), "pose_lm")
-    kernels.count_launch("pose_lm")
+    kernels.count_launch("pose_lm", args[0])
     return out

@@ -113,8 +113,10 @@ def quantize_u8_grid(img: torch.Tensor) -> torch.Tensor:
 
 def build_pyramid(img: torch.Tensor, num_levels: int, scale: float):
     """(H,W) f32 -> list of (Hl,Wl) integer-valued f32 levels, each resized
-    from the previous one."""
-    h, w = img.shape
+    from the previous one.  A batch (B,H,W) gives (B,Hl,Wl) levels, each
+    frame's bit for bit its own pyramid (every step is elementwise or a
+    gather)."""
+    h, w = img.shape[-2:]
     shapes = level_shapes(h, w, num_levels, scale)
     levels = [img]
     for l in range(1, num_levels):
@@ -123,10 +125,10 @@ def build_pyramid(img: torch.Tensor, num_levels: int, scale: float):
 
 
 def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """``jax.image.resize(method="nearest")`` for a 2-D map: source index
-    floor((i + 0.5) * m / n), where XLA folds ``* m / n`` into one f32
-    constant m * (1/n) (each step rounded to f32)."""
-    for d, n in zip((0, 1), out_hw):
+    """``jax.image.resize(method="nearest")`` over the last two axes of
+    (...,H,W): source index floor((i + 0.5) * m / n), where XLA folds
+    ``* m / n`` into one f32 constant m * (1/n) (each step rounded to f32)."""
+    for d, n in zip((x.ndim - 2, x.ndim - 1), out_hw):
         m = x.shape[d]
         if m == n:
             continue
@@ -159,6 +161,8 @@ def _blur_axis(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
 
 def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
     """Separable Gaussian blur with replicate padding (cv::GaussianBlur(7,7,2)),
-    rounded back to the integer grid like cv::GaussianBlur on u8."""
+    rounded back to the integer grid like cv::GaussianBlur on u8, over the
+    last two axes of (...,H,W)."""
     taps = _gaussian_taps(ksize, sigma)
-    return quantize_u8_grid(_blur_axis(_blur_axis(img, taps, 0), taps, 1))
+    d = img.ndim
+    return quantize_u8_grid(_blur_axis(_blur_axis(img, taps, d - 2), taps, d - 1))

@@ -160,11 +160,13 @@ class System:
         # per-phase wall times of the last feed_sequence
         self.pipe_stats = {"prep_s": [], "dispatch_s": [], "finish_s": []}
         self.mapping_enabled = True
+        self._running = False
         if async_mapping:
             self.global_optimizer.start_loop_worker()
 
     # ------------------------------------------------------------------
     def startup(self):
+        self._running = True
         _log.info("system startup (%s, %dx%d, %s mapping, %s)", self.cam.setup.value, self.cam.cols,
                   self.cam.rows, "async" if self._async else "sync", self.device)
 
@@ -185,6 +187,7 @@ class System:
                 finally:
                     self.tracker.close()
                     self.join_autosave(timeout=120)
+                    self._running = False
         _log.info("system shutdown: %d frames, %d keyframes, %d landmarks",
                   len(self.trajectory), self.map_db.n_kfs, len(self.map_db.valid_lm_ids()))
 

@@ -79,7 +79,10 @@ def test_import_loads_no_jax_and_builds_nothing():
             "openvslam_tpu_torch.kernels as k, openvslam_tpu_torch.utils.native as nat, torch, "
             "openvslam_tpu_torch.io.map_database_io, openvslam_tpu_torch.io.msgpack_compat, "
             "openvslam_tpu_torch.publish.socket_viewer, openvslam_tpu_torch.publish.html_viewer, "
-            "openvslam_tpu_torch.utils.datasets\n"
+            "openvslam_tpu_torch.utils.datasets, openvslam_tpu_torch.models.batch_step, "
+            "openvslam_tpu_torch.parallel, openvslam_tpu_torch.parallel.stream_parallel, "
+            "openvslam_tpu_torch.parallel.multihost, "
+            "openvslam_tpu_torch.parallel.multi_session_multihost\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', 'openvslam_tpu.')) "
             "or m == 'openvslam_tpu' for m in sys.modules), sorted(sys.modules)\n"
             "assert not {'msgpack', 'imageio', 'cv2', 'PIL'} & {m.split('.')[0] for m in "
@@ -108,6 +111,45 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         stereo_rectifier.StereoRectifier(cam, raw)
     assert stereo_rectifier.StereoRectifier(cam, raw, device="cpu").map_l.device.type == "cpu"
+
+
+def test_parallel_has_every_module_and_no_jax():
+    """``parallel/`` holds a counterpart of each of the JAX package's six
+    modules, and none of them (nor the batched step) imports a forbidden
+    package."""
+    names = ("mesh", "stream_parallel", "distributed_ba", "multi_session", "multihost",
+             "multi_session_multihost")
+    jax_dir = os.path.join(ROOT, "openvslam_tpu", "parallel")
+    assert {f[:-3] for f in os.listdir(jax_dir) if f.endswith(".py")} - {"__init__"} == set(names)
+    paths = [os.path.join(PKG, "parallel", f"{n}.py") for n in names + ("__init__",)]
+    paths.append(os.path.join(PKG, "models", "batch_step.py"))
+    for path in paths:
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+        assert not bad, (path, bad)
+    from openvslam_tpu_torch import parallel
+    assert parallel.__all__ == ["make_mesh", "make_distributed_ba", "ShardedBAProblem",
+                                "MultiSessionRunner"]
+
+
+def test_parallel_entry_points_refuse_missing_cuda(monkeypatch):
+    from openvslam_tpu_torch.models.batch_step import BatchFrameStep
+    from openvslam_tpu_torch.parallel import make_mesh, multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam = Perspective(fx=100.0, fy=100.0, cx=32.0, cy=24.0, cols=64, rows=48)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchFrameStep(cam, max_keypts=64, num_levels=2, lm_capacity=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(2, "cuda")
+    assert make_mesh(3, "cpu") == [torch.device("cpu")] * 3
+    # the backend follows the device: NCCL is never swapped for gloo
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.initialize("file:///nonexistent", 1, 0)
+    with pytest.raises(ValueError, match="backend"):
+        multihost.initialize("file:///nonexistent", 1, 0, device="cpu", backend="nccl")
+    assert not torch.distributed.is_initialized()
 
 
 def test_wrappers_dispatch_by_device(rng):

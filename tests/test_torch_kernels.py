@@ -21,7 +21,9 @@ the same candidate keyframe, the same stage-1 counts, the pose within
 atol 1e-3; the bundle adjustments' fixed-order sums on the card bit for bit
 equal to ``index_add_`` on the CPU; a padded local BA problem solved three
 times on the card, bit for bit the same, and against the CPU's solve: the
-same inliers, T within atol 1e-3.
+same inliers, T within atol 1e-3; one launch of K1, K2 or K3 over B = 1, 4
+and 8 problems bit for bit the B single launches, and BatchFrameStep bit
+for bit FrameStep on each stream.
 """
 import numpy as np
 import pytest
@@ -413,3 +415,99 @@ def test_local_ba_repeats_on_the_card(rng, cuda):
     assert torch.equal(got.obs_inlier.cpu(), ref.obs_inlier)
     assert int(ref.obs_inlier.sum()) < int(prob.obs_mask.sum())
     assert float((got.T_cw.cpu() - ref.T_cw).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# batched launches: one launch over B problems equals B single launches bit
+# for bit (the per-problem code of each kernel is the single launch's)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fast_kernel_batch_equals_single_launches(rng, cuda, B, masked):
+    frames = torch.from_numpy(rng.integers(0, 256, (B, 480, 640)).astype(np.float32)).to(cuda)
+    levels = pyramid.build_pyramid(frames, 8, 1.2)
+    budgets = level_budgets(1024, 8, 1.2)
+    masks = ([(torch.rand(tuple(im.shape), device=cuda) > 0.3).to(torch.float32)
+              for im in levels] if masked else None)
+    before = kernels.launch_counts()["fast_score_maps"]
+    vals, idxs = fast.fast_cell_pools(levels, 20.0, 7.0, budgets, masks=masks)
+    assert kernels.launch_counts()["fast_score_maps"] == before + 1
+    assert vals.shape[:2] == (B, 8)
+    for b in range(B):
+        one = [im[b].contiguous() for im in levels]
+        ms = None if masks is None else [m[b].contiguous() for m in masks]
+        v1, i1 = fast.fast_cell_pools(one, 20.0, 7.0, budgets, masks=ms)
+        assert torch.equal(vals[b], v1) and torch.equal(idxs[b], i1)
+    vp, ip = fast.fast_cell_pools_plain_batch([im.cpu() for im in levels], 20.0, 7.0, budgets,
+                                              masks=None if masks is None else
+                                              [m.cpu() for m in masks])
+    assert torch.equal(vals.cpu(), vp) and torch.equal(idxs.cpu(), ip)
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_match_kernel_batch_equals_single_launches(rng, cuda, B):
+    probs = [_match_problem(rng, 4096, 1064, cuda) for _ in range(B)]
+    ops = [torch.stack(t) for t in zip(*probs)]
+    for ratio, cross in ((0.9, True), (None, False)):
+        before = kernels.launch_counts()["projection_match"]
+        idx, dist = M.projection_scale_match(*ops, ratio=ratio, cross_check=cross)
+        assert kernels.launch_counts()["projection_match"] == before + 1
+        assert idx.shape == (B, 4096)
+        for b, p in enumerate(probs):
+            i1, d1 = M.projection_scale_match(*p, ratio=ratio, cross_check=cross)
+            assert torch.equal(idx[b], i1) and torch.equal(dist[b], d1)
+        assert int((idx >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("stereo,n", [(False, 1064), (True, 1064), (False, 5000)])
+def test_pose_lm_kernel_batch_equals_single_launches(rng, cuda, B, stereo, n):
+    probs = [_lm_problem(rng, n, stereo, cuda) for _ in range(B)]
+    kw = probs[0][2]
+    args = [torch.stack(t) for t in zip(*(p[1] for p in probs))]
+    before = kernels.launch_counts()["pose_lm"]
+    out = pose_lm.pose_lm(*args, **kw)
+    assert kernels.launch_counts()["pose_lm"] == before + 1
+    assert out[0].shape == (B, 4, 4) and out[2].shape == (B,)
+    for b, (_, a, _) in enumerate(probs):
+        one = pose_lm.pose_lm(*a, **kw)
+        for x, y in zip(one, out):
+            assert torch.equal(x, y[b])
+
+
+def test_batch_step_gpu_equals_frame_step(cuda):
+    """BatchFrameStep on the card, stream by stream bit for bit FrameStep."""
+    from openvslam_tpu_torch.models.batch_step import BatchFrameStep
+
+    H, W, L, B = 240, 320, 512, 4
+    cam = Perspective(fx=260.0, fy=260.0, cx=160.0, cy=120.0, cols=W, rows=H)
+    scene = synthetic.PatchSceneRenderer(np.random.default_rng(5), n_points=2000, center=(0, 0, 6),
+                                         extent=(7, 5, 2.5), patch=7, rows=H, cols=W)
+    poses = synthetic.orbit_trajectory(40, radius=2.5, target=(0, 0, 6), arc=np.pi / 4)
+    imgs = torch.from_numpy(np.stack([scene.render(cam, p) for p in poses[:B + 1]])).to(cuda)
+    fs = FrameStep(cam, max_keypts=400, num_levels=4, lm_capacity=L, device=cuda)
+    bs = BatchFrameStep(cam, max_keypts=400, num_levels=4, lm_capacity=L, device=cuda)
+    kp0 = fs.frontend.extract(imgs[0])
+    pc0 = (poses[0][:3, :3] @ scene.points.T).T + poses[0][:3, 3]
+    uv0, _, vis0 = cam.project(torch.from_numpy(pc0.astype(np.float32)).to(cuda))
+    dmin, j = torch.cdist(uv0, kp0.xy).masked_fill(~kp0.valid[None, :], 1e9).min(1)
+    rows = torch.nonzero(vis0 & (dmin < 3.0))[:, 0][:L]
+    n = rows.shape[0]
+    pos = torch.zeros(L, 3, device=cuda)
+    desc = torch.zeros(L, 8, dtype=torch.int32, device=cuda)
+    pos[:n] = torch.from_numpy(scene.points.astype(np.float32)).to(cuda)[rows]
+    desc[:n] = kp0.desc_u32[j[rows]]
+    valid = torch.arange(L, device=cuda) < n
+    lvl = torch.full((L,), -1, dtype=torch.int64, device=cuda)
+    T = torch.from_numpy(poses[:B].astype(np.float32)).to(cuda)
+    kernels.reset_launch_counts()
+    out = bs.step(imgs[1:], T, pos.expand(B, L, 3), desc.expand(B, L, 8), valid.expand(B, L),
+                  lvl.expand(B, L))
+    assert kernels.launch_counts() == dict.fromkeys(kernels.LAUNCHES, 1)
+    assert kernels.batched_launch_counts() == dict.fromkeys(kernels.LAUNCHES, 1)
+    for b in range(B):
+        o1 = fs.step(imgs[b + 1], T[b], pos, desc, valid, lvl)
+        for f in o1._fields:
+            assert torch.equal(getattr(o1, f), getattr(out, f)[b]), (b, f)
+    assert int(out.num_inliers.min()) >= 30
