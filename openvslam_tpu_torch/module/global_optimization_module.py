@@ -61,6 +61,14 @@ GLOBAL_BA_ITERS = 60            # after a loop correction (see correct_loop)
 GLOBAL_BA_CG_ITERS = 30
 
 
+def _so3_projection(R: np.ndarray) -> np.ndarray:
+    """The rotation nearest ``R`` (3x3), through its SVD in float64."""
+    U, _, Vt = np.linalg.svd(np.asarray(R, np.float64))
+    if np.linalg.det(U @ Vt) < 0:
+        U[:, -1] = -U[:, -1]
+    return (U @ Vt).astype(np.float32)
+
+
 class GlobalOptimizationModule:
     def __init__(self, cfg, cam, map_db, vocab_path: Optional[str] = None,
                  fix_scale: bool = False, device="cuda"):
@@ -406,7 +414,8 @@ class GlobalOptimizationModule:
     def build_pose_graph(self, fixed_kf: int):
         """The pose-graph problem over every valid keyframe (None below 3):
         spanning-tree, loop and strong covisibility edges, each measured from
-        the current poses.  Returns (problem as numpy arrays, index, T_old)."""
+        the current poses with their rotations projected onto SO(3).  Returns
+        (problem as numpy arrays, index, T_old: those poses)."""
         db = self.db
         ids = db.valid_kf_ids()
         n = len(ids)
@@ -419,10 +428,16 @@ class GlobalOptimizationModule:
         sn = np.ones(N, np.float32)
         node_valid = np.zeros(N, bool)
         node_fixed = np.zeros(N, bool)
+        # each keyframe's rotation projected onto SO(3): tracking and BA
+        # compose float32 rotations, which drift off SO(3) (by up to 2.5e-3
+        # over the city circuit), and a graph whose edges are measured from
+        # the current poses starts at its optimum only if nodes and edges
+        # share exact rotations (the inverse of a node is its transpose)
         T_old = {}
         for k, i in index.items():
-            T = db.kf_pose_cw[k]
-            T_old[k] = T.copy()
+            T = db.kf_pose_cw[k].copy()
+            T[:3, :3] = _so3_projection(T[:3, :3])
+            T_old[k] = T
             Rn[i] = T[:3, :3]
             tn[i] = T[:3, 3]
             node_valid[i] = True
@@ -452,7 +467,8 @@ class GlobalOptimizationModule:
             ne = len(edges)
             ka = np.array([a for a, _ in edges])
             kb = np.array([b for _, b in edges])
-            Ti, Tj = db.kf_pose_cw[ka], db.kf_pose_cw[kb]
+            Ti = np.stack([T_old[int(a)] for a in ka])
+            Tj = np.stack([T_old[int(b)] for b in kb])
             Ri, ti = Ti[:, :3, :3], Ti[:, :3, 3]
             Rj, tj = Tj[:, :3, :3], Tj[:, :3, 3]
             Rrel = np.einsum("nij,nkj->nik", Rj, Ri)      # Rj Ri^T

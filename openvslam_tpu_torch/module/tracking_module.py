@@ -139,6 +139,9 @@ class TrackingModule:
         self.velocity = np.eye(4, dtype=np.float32)   # T_cur @ inv(T_last)
         self.ref_kf = -1
         self.last_kf_frame_id = -1
+        # (frame id, reference keyframe, its pose, db.geom_version) of the
+        # last accepted frame, for _reanchor_last_frame
+        self._anchor = None
         self.num_tracked = 0
         self._lm_cache = None      # device-resident local-map mirror
         self._frame_dev = None     # (frame, device columns) of the frame in hand
@@ -293,6 +296,23 @@ class TrackingModule:
     # ------------------------------------------------------------------
     # frame-to-frame tracking (the classic ladder)
     # ------------------------------------------------------------------
+    def _reanchor_last_frame(self):
+        """Carry the last frame with its reference keyframe when a loop
+        correction or a global BA has moved the map since the frame was
+        tracked (``db.geom_version``; ref tracking_module::update_last_frame):
+        its pose relative to that keyframe is kept.  Otherwise the motion
+        model predicts the next frame in the map as it was before the
+        correction, metres from the landmarks it then matches."""
+        a, lf, db = self._anchor, self.last_frame, self.map_db
+        if a is None or lf is None or a[0] != lf.frame_id or a[3] == db.geom_version:
+            return
+        self._anchor = None
+        kf, T_ref = a[1], a[2]
+        if lf.pose_cw is None or not (0 <= kf < len(db.kf_valid) and db.kf_valid[kf]):
+            return
+        rel = lf.pose_cw.astype(np.float64) @ np.linalg.inv(T_ref.astype(np.float64))
+        lf.pose_cw = (rel @ db.kf_pose_cw[kf]).astype(np.float32)
+
     def _update_last_frame_landmarks(self):
         lf = self.last_frame
         db = self.map_db
@@ -459,6 +479,7 @@ class TrackingModule:
         return LOST_THRESHOLD if self.frames_since_reloc > 30 else 50
 
     def _track_frame(self, frame: Frame):
+        self._reanchor_last_frame()
         self._update_last_frame_landmarks()
         T_pred = (self.velocity @ self.last_frame.pose_cw).astype(np.float32)
         T_mm_pred = T_pred
@@ -520,8 +541,15 @@ class TrackingModule:
         self.velocity = (frame.pose_cw @ np.linalg.inv(self.last_frame.pose_cw)).astype(np.float32)
         self._record_pose(frame)
         self.frames_since_reloc += 1
+        # the frame's reference keyframe and its pose now, before a keyframe
+        # insertion can run (synchronous) mapping and a loop correction
+        db, ref = self.map_db, self.ref_kf
+        geom = db.geom_version
+        self._anchor = ((frame.frame_id, ref, db.kf_pose_cw[ref].copy(), geom)
+                        if 0 <= ref < len(db.kf_valid) and db.kf_valid[ref] else None)
         if self._new_keyframe_needed(frame):
             self._insert_keyframe(frame)
+            self._anchor = (frame.frame_id, self.ref_kf, frame.pose_cw.copy(), geom)
 
     def _record_pose(self, frame: Frame):
         self._pose_hist.append((frame.frame_id, frame.pose_cw.copy()))
@@ -625,6 +653,7 @@ class TrackingModule:
         before the earlier ones are finished.  Returns the in-flight handle
         for ``track_fused_finish``."""
         db = self.map_db
+        self._reanchor_last_frame()
         self._update_last_frame_landmarks()
         lf = self.last_frame
         ids = np.where((lf.lm_idx >= 0) & lf.valid & ~lf.outlier)[0]

@@ -27,13 +27,22 @@ def hat(w: torch.Tensor) -> torch.Tensor:
 
 
 def _coeffs(w: torch.Tensor):
-    theta2 = torch.sum(w * w, -1)
-    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    """(...,3) -> the Rodrigues coefficients a, b, c, each (...,1,1).
+
+    The large-angle quotients are evaluated at a substitute angle wherever
+    the small-angle series is selected, so that no branch that ``where``
+    discards divides by zero: its gradient stays finite at 0.  The kept
+    dimensions keep a single twist's coefficients out of 0-dim tensors,
+    which forward-mode autodiff promotes to float64 against Python
+    constants."""
+    theta2 = torch.sum(w * w, -1, keepdim=True)[..., None]
     small = theta2 < _EPS
+    theta2_l = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_l)
     a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2_l)
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
-                    (theta - torch.sin(theta)) / (theta2 * theta))
+                    (theta - torch.sin(theta)) / (theta2_l * theta))
     return a, b, c
 
 
@@ -45,7 +54,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (...,3) axis-angle -> (...,3,3) rotation."""
     a, b, _ = _coeffs(w)
     W = hat(w)
-    return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
+    return _eye_like(W) + a * W + b * (W @ W)
 
 
 def to_quat(R: torch.Tensor) -> torch.Tensor:
@@ -95,7 +104,7 @@ def _V(w: torch.Tensor) -> torch.Tensor:
     """Left Jacobian of SO(3): integrates translation in the se(3) exp."""
     _, b, c = _coeffs(w)
     W = hat(w)
-    return _eye_like(W) + b[..., None, None] * W + c[..., None, None] * (W @ W)
+    return _eye_like(W) + b * W + c * (W @ W)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

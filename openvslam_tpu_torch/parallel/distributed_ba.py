@@ -162,12 +162,7 @@ def _override_residuals(res_fn):
             z3 = torch.zeros(3, dtype=dt, device=Tc.device)
 
             def r_of(xi, dX):
-                # I + hat(xi) has the left increment's derivative at 0, and
-                # differentiates where the exp's small-angle branch gives NaN
-                top = torch.cat([se3.hat(xi[:3]), xi[3:, None]], 1)
-                A = torch.eye(4, dtype=dt, device=Tc.device) + torch.cat(
-                    [top, torch.zeros((1, 4), dtype=dt, device=Tc.device)], 0)
-                return one(A @ Tc, Xl + dX, o)[0]
+                return one(se3.se3_exp(xi) @ Tc, Xl + dX, o)[0]
 
             r, ok = one(Tc, Xl, o)
             return r, ok, jacrev(lambda xi: r_of(xi, z3))(z6), jacrev(lambda dX: r_of(z6, dX))(z3)

@@ -165,7 +165,12 @@ class System:
             self.global_optimizer.start_loop_worker()
 
     # ------------------------------------------------------------------
-    def startup(self):
+    def startup(self, need_initialize: bool = True):
+        """Start accepting frames.  ``need_initialize=False`` (a loaded map,
+        ref system::startup(need_initialize)) relocalizes the first frames
+        in the map instead of bootstrapping a second map on top of it."""
+        if not need_initialize:
+            self.tracker.state = TrackerState.LOST
         self._running = True
         _log.info("system startup (%s, %dx%d, %s mapping, %s)", self.cam.setup.value, self.cam.cols,
                   self.cam.rows, "async" if self._async else "sync", self.device)
@@ -298,6 +303,12 @@ class System:
         self._pace_waits += 1
         self._pace_wait_s += dt
         self._pace_wait_max = max(self._pace_wait_max, dt)
+
+    def add_mask(self, mask: np.ndarray):
+        """Multiply a (rows, cols) mask (> 0 = usable) into the static
+        extraction mask that every frame without its own mask uses."""
+        m = torch.as_tensor((np.asarray(mask) > 0).astype(np.float32), device=self.device)
+        self._static_mask = m if self._static_mask is None else m * self._static_mask
 
     def _mask_tensor(self, mask):
         return (self._static_mask if mask is None

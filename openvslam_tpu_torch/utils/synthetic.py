@@ -1,10 +1,11 @@
 """Synthetic scenes and trajectories (a copy of the numpy parts of
-``openvslam_tpu/utils/synthetic.py`` that the port's tests and
-``chip_smoke.py`` use: the patch scene and orbit, and the textured n-gon
-room with its lap trajectory; the renderers project with the port's
-camera, and the room also renders with torch ops on any device,
-``RoomSceneRenderer.render_torch``), and the matcher's adversarial inputs
-(``adversarial_match_cases``)."""
+``openvslam_tpu/utils/synthetic.py``: random poses, the patch scene and
+orbit, the textured n-gon room with its lap trajectory, the street course
+and its drive, and the sensor photometrics; the renderers project with the
+port's camera, and the room and the street course also render with torch
+ops on any device, ``RoomSceneRenderer.render_torch`` and
+``CityCourseRenderer.render_sequence_torch``), and the matcher's
+adversarial inputs (``adversarial_match_cases``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -34,10 +35,43 @@ def lookat_pose_cw(eye, target, up=(0, -1, 0)):
     return T
 
 
-def orbit_trajectory(n_frames: int, radius=2.0, target=(0, 0, 6), arc=np.pi / 3):
-    """Smooth sideways arc of camera poses looking at ``target`` -> (N,4,4) T_cw."""
-    return np.stack([lookat_pose_cw([radius * np.sin(a), 0.0, radius * (1 - np.cos(a))], target)
-                     for a in np.linspace(-arc / 2, arc / 2, n_frames)])
+def orbit_trajectory(n_frames: int, radius=2.0, height=0.0, target=(0, 0, 6),
+                     arc=np.pi / 3, jitter=0.0, rng=None):
+    """Smooth sideways arc of camera poses looking at ``target`` -> (N,4,4)
+    T_cw; with ``jitter`` and ``rng`` each eye moves by a uniform draw in
+    [-jitter/2, jitter/2)^3."""
+    poses = []
+    for a in np.linspace(-arc / 2, arc / 2, n_frames):
+        eye = np.array([radius * np.sin(a), height, radius * (1 - np.cos(a))])
+        if jitter and rng is not None:
+            eye = eye + (rng.random(3) - 0.5) * jitter
+        poses.append(lookat_pose_cw(eye, target))
+    return np.stack(poses)
+
+
+def random_pose_cw(rng: np.random.Generator, max_angle=0.5, max_trans=1.0):
+    """A pose with a rotation of uniform axis-angle components in
+    [-max_angle, max_angle) and a translation in [-max_trans, max_trans)."""
+    w = (rng.random(3) - 0.5) * 2 * max_angle
+    theta = np.linalg.norm(w)
+    if theta < 1e-12:
+        R = np.eye(3)
+    else:
+        k = w / theta
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * K @ K
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = (rng.random(3) - 0.5) * 2 * max_trans
+    return T
+
+
+def random_sim3(rng: np.random.Generator, max_angle=0.5, max_trans=1.0, scale_range=(0.5, 2.0)):
+    """(R, t, s): ``random_pose_cw``'s rotation and translation and a
+    uniform scale."""
+    T = random_pose_cw(rng, max_angle, max_trans)
+    s = rng.uniform(*scale_range)
+    return T[:3, :3], T[:3, 3], s
 
 
 def lap_trajectory(n_frames: int, radius=6.0, laps=1.0, start_angle=0.0):
@@ -254,6 +288,365 @@ class PatchSceneRenderer:
                 continue
             img[y0:y1, x0:x1] = self.textures[i][ty0:ty0 + (y1 - y0), tx0:tx0 + (x1 - x0)]
         return img
+
+
+class RoundedRectCourse:
+    """Closed centre line of a rounded-rectangle street circuit in the
+    (x, z) ground plane: long straights, 90-degree corners of radius
+    ``corner_r`` and an exact return to the start.  Parameterized by
+    arclength s in [0, length); ``point`` and ``tangent`` take arrays of s."""
+
+    def __init__(self, straight_x: float = 220.0, straight_z: float = 220.0,
+                 corner_r: float = 20.0):
+        self.sx = float(straight_x)
+        self.sz = float(straight_z)
+        self.r = float(corner_r)
+        arc = np.pi / 2 * self.r
+        # +x straight, corner, +z straight, corner, -x straight, corner,
+        # -z straight, corner (counter-clockwise seen from +y)
+        self.piece_len = np.array([self.sx, arc, self.sz, arc, self.sx, arc, self.sz, arc])
+        self.cum = np.concatenate([[0.0], np.cumsum(self.piece_len)])
+        self.length = float(self.cum[-1])
+        hx, hz, r = self.sx / 2, self.sz / 2, self.r
+        self.p0 = np.array([[-hx, -hz - r], [hx, -hz - r], [hx + r, -hz], [hx + r, hz],
+                            [hx, hz + r], [-hx, hz + r], [-hx - r, hz], [-hx - r, -hz]])
+        self.dirs = np.array([[1, 0], [0, 0], [0, 1], [0, 0],
+                              [-1, 0], [0, 0], [0, -1], [0, 0]], float)
+        self.corner_c = np.array([[hx, -hz], [hx, hz], [-hx, hz], [-hx, -hz]])
+        # corner k turns from angle a0 to a0 + pi/2 about its centre
+        self.corner_a0 = np.array([-np.pi / 2, 0.0, np.pi / 2, np.pi])
+
+    def _locate(self, s):
+        s = np.mod(np.asarray(s, float), self.length)
+        piece = np.clip(np.searchsorted(self.cum, s, side="right") - 1, 0, 7)
+        return piece, s - self.cum[piece]
+
+    def point(self, s) -> np.ndarray:
+        """(..., 2) (x, z) positions on the centre line."""
+        piece, local = self._locate(s)
+        out = np.zeros(piece.shape + (2,))
+        straight = piece % 2 == 0
+        out[straight] = self.p0[piece[straight]] + local[straight, None] * self.dirs[piece[straight]]
+        crn = ~straight
+        k = piece[crn] // 2
+        ang = self.corner_a0[k] + local[crn] / self.r
+        out[crn] = self.corner_c[k] + self.r * np.stack([np.cos(ang), np.sin(ang)], -1)
+        return out
+
+    def tangent(self, s) -> np.ndarray:
+        """(..., 2) unit tangents, in the direction of travel."""
+        piece, local = self._locate(s)
+        out = np.zeros(piece.shape + (2,))
+        straight = piece % 2 == 0
+        out[straight] = self.dirs[piece[straight]]
+        crn = ~straight
+        k = piece[crn] // 2
+        ang = self.corner_a0[k] + local[crn] / self.r
+        out[crn] = np.stack([-np.sin(ang), np.cos(ang)], -1)
+        return out
+
+
+class CityCourseRenderer:
+    """A street canyon along a closed course: textured building walls on
+    both sides of the street and a textured road, rendered by casting a ray
+    per sample against planar quads, with distance and back-face culling.
+    It is the KITTI 00-class scene: a circuit of hundreds of metres whose
+    end revisits its start.
+
+    Quads are vertical wall segments of about ``seg_len`` m tangent to the
+    course's offset curves and road quads spanning the street between
+    them; their textures lie in one padded atlas.  Camera +y is down, so
+    the road is at y = +road_y.  ``render`` is numpy on the host;
+    ``render_sequence_torch`` renders a sequence with torch ops on any
+    device."""
+
+    RAY_CHUNK = 65536
+
+    def __init__(self, rng: np.random.Generator, course,
+                 street_half_w: float = 4.0, wall_y=(-4.5, 1.5),
+                 road_y: float = 1.5, seg_len: float = 8.0,
+                 res: float = 24.0, max_dist: float = 70.0,
+                 octaves=((4, 0.2), (16, 0.4), (64, 1.0), (128, 0.6)), dots=True):
+        self.course = course
+        self.max_dist = float(max_dist)
+        n_seg = int(np.ceil(course.length / seg_len))
+        s = np.linspace(0.0, course.length, n_seg + 1)
+        pts = course.point(s)
+        tans = course.tangent(s)
+        nrm = np.stack([-tans[:, 1], tans[:, 0]], -1)     # left normal in the ground plane
+        left = pts + street_half_w * nrm
+        right = pts - street_half_w * nrm
+        y0, y1 = wall_y
+        wall_h = y1 - y0
+        quads = []        # (p0, n, u_axis, v_axis, half_u, half_v, texture)
+
+        def wall(a2, b2, inward2):
+            mid = (a2 + b2) / 2
+            seg = b2 - a2
+            ln = np.linalg.norm(seg)
+            if ln < 1e-6:
+                return
+            u2 = seg / ln
+            tex = noise_texture(rng, max(8, int(wall_h * res)), max(8, int(ln * res)),
+                                octaves, dots)
+            quads.append((np.array([mid[0], (y0 + y1) / 2, mid[1]]),
+                          np.array([inward2[0], 0.0, inward2[1]]),
+                          np.array([u2[0], 0.0, u2[1]]), np.array([0.0, 1.0, 0.0]),
+                          ln / 2, wall_h / 2, tex))
+
+        for i in range(n_seg):
+            inward = -nrm[i]                 # from the left wall toward the street
+            wall(left[i], left[i + 1], inward)
+            wall(right[i], right[i + 1], -inward)
+            mid = (pts[i] + pts[i + 1]) / 2
+            seg = pts[i + 1] - pts[i]
+            ln = np.linalg.norm(seg)
+            if ln < 1e-6:
+                continue
+            u2 = seg / ln
+            tex = noise_texture(rng, max(8, int(2 * street_half_w * res)), max(8, int(ln * res)),
+                                octaves, dots)
+            quads.append((np.array([mid[0], road_y, mid[1]]), np.array([0.0, -1.0, 0.0]),
+                          np.array([u2[0], 0.0, u2[1]]), np.array([nrm[i][0], 0.0, nrm[i][1]]),
+                          ln / 2, street_half_w, tex))
+
+        self.quad_p0 = np.stack([q[0] for q in quads]).astype(np.float32)
+        self.quad_n = np.stack([q[1] for q in quads]).astype(np.float32)
+        self.quad_u = np.stack([q[2] for q in quads]).astype(np.float32)
+        self.quad_v = np.stack([q[3] for q in quads]).astype(np.float32)
+        self.quad_hu = np.array([q[4] for q in quads], np.float32)
+        self.quad_hv = np.array([q[5] for q in quads], np.float32)
+        self.textures = [q[6] for q in quads]
+        th_max = max(t.shape[0] for t in self.textures)
+        tw_max = max(t.shape[1] for t in self.textures)
+        self.atlas = np.zeros((len(quads), th_max, tw_max), np.float32)
+        self.tex_h = np.zeros(len(quads), np.int32)
+        self.tex_w = np.zeros(len(quads), np.int32)
+        for i, t in enumerate(self.textures):
+            self.atlas[i, :t.shape[0], :t.shape[1]] = t
+            self.tex_h[i], self.tex_w[i] = t.shape
+        self.res = res
+        self._bearing_cache = {}
+        self._device_cache = {}
+
+    def _bearings(self, cam, ss: int = 1) -> np.ndarray:
+        """(rows*ss * cols*ss, 3) float64 bearings of an ss x ss grid of
+        samples in each pixel (the supersampling box-filters the texture's
+        minification, which would alias from frame to frame)."""
+        key = (cam.rows, cam.cols, id(type(cam)), ss)
+        if key not in self._bearing_cache:
+            sub = (np.arange(ss) + 0.5) / ss - 0.5
+            us = (np.arange(cam.cols)[:, None] + sub[None, :]).reshape(-1)
+            vs = (np.arange(cam.rows)[:, None] + sub[None, :]).reshape(-1)
+            uu, vv = np.meshgrid(us, vs)
+            pix = np.stack([uu.reshape(-1), vv.reshape(-1)], -1).astype(np.float32)
+            self._bearing_cache[key] = cam.keypoints_to_bearings(
+                torch.from_numpy(pix)).numpy().astype(np.float64)
+        return self._bearing_cache[key]
+
+    def _cull(self, c: np.ndarray) -> np.ndarray:
+        """Indices of the quads whose centre lies within ``max_dist`` of the
+        camera centre ``c`` (float32) and that face it."""
+        rel = self.quad_p0 - c[None, :]
+        near = np.einsum("ij,ij->i", rel, rel) < self.max_dist ** 2
+        facing = np.einsum("ij,ij->i", rel, self.quad_n) < 0
+        return np.where(near & facing)[0]
+
+    def render(self, cam, T_cw: np.ndarray, ss: int = 1) -> np.ndarray:
+        R = T_cw[:3, :3].astype(np.float32)
+        t = T_cw[:3, 3].astype(np.float32)
+        c = -R.T @ t
+        d = (self._bearings(cam, ss) @ R).astype(np.float32)     # (P, 3) rays, world
+        idx = self._cull(c)
+        P = len(d)
+        if len(idx) == 0:
+            return np.zeros((cam.rows, cam.cols), np.uint8)
+        n = self.quad_n[idx]
+        p0 = self.quad_p0[idx]
+        denom = d @ n.T                                          # (P, V)
+        denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+        lam = np.einsum("vk,vk->v", p0 - c[None, :], n)[None, :] / denom
+        # texture coordinates of the hit, (c - p0).u + lam (d.u), without a
+        # (P, V, 3) intermediate
+        u_ax, v_ax = self.quad_u[idx], self.quad_v[idx]
+        cu = np.einsum("vk,vk->v", c[None, :] - p0, u_ax)
+        cv = np.einsum("vk,vk->v", c[None, :] - p0, v_ax)
+        tu = cu[None, :] + lam * (d @ u_ax.T)
+        tv = cv[None, :] + lam * (d @ v_ax.T)
+        ok = ((lam > 1e-3) & (np.abs(tu) < self.quad_hu[idx][None, :])
+              & (np.abs(tv) < self.quad_hv[idx][None, :]))
+        lam_ok = np.where(ok, lam, np.inf)
+        w = np.argmin(lam_ok, axis=1)                            # the nearest visible quad
+        hit = np.isfinite(lam_ok[np.arange(P), w])
+        qw = idx[w]
+        px = (tu[np.arange(P), w] + self.quad_hu[qw]) * self.res
+        py = (tv[np.arange(P), w] + self.quad_hv[qw]) * self.res
+        x0 = np.clip(np.floor(px).astype(int), 0, self.tex_w[qw] - 2)
+        y0 = np.clip(np.floor(py).astype(int), 0, self.tex_h[qw] - 2)
+        fx = np.clip(px - x0, 0, 1)
+        fy = np.clip(py - y0, 0, 1)
+        at = self.atlas
+        val = (at[qw, y0, x0] * (1 - fx) * (1 - fy) + at[qw, y0, x0 + 1] * fx * (1 - fy)
+               + at[qw, y0 + 1, x0] * (1 - fx) * fy + at[qw, y0 + 1, x0 + 1] * fx * fy)
+        out = np.where(hit, val, 0.0)
+        if ss > 1:
+            out = out.reshape(cam.rows, ss, cam.cols, ss).mean(axis=(1, 3))
+        return out.reshape(cam.rows, cam.cols).astype(np.uint8)
+
+    def _on_device(self, dev: torch.device) -> dict:
+        """The quads and the whole texture atlas as tensors on ``dev``."""
+        if dev not in self._device_cache:
+            arr = dict(n=self.quad_n, u=self.quad_u, v=self.quad_v, hu=self.quad_hu,
+                       hv=self.quad_hv, tex_h=self.tex_h.astype(np.int64),
+                       tex_w=self.tex_w.astype(np.int64), atlas=self.atlas.reshape(-1))
+            self._device_cache[dev] = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                                       for k, a in arr.items()}
+        return self._device_cache[dev]
+
+    def render_sequence_torch(self, cam, poses_cw, ss: int = 1, device="cuda") -> torch.Tensor:
+        """``render`` of each of ``poses_cw`` (N, 4, 4) T_cw with torch ops on
+        ``device`` -> (N, rows, cols) uint8 tensor there.
+
+        The rules are ``render``'s: the same culling (on the host, per
+        frame), the nearest visible quad per sample, the bilinear atlas
+        texel at its texture coordinates, the ss x ss mean, truncated to
+        uint8.  The rays go through in chunks of ``RAY_CHUNK``, so that the
+        device holds one chunk's (C, V) intermediates at a time.  The
+        ray-quad dot products are elementwise float32 sums: no TF32 matmul
+        lowers them (texture coordinates that jitter by a fraction of a
+        texel from frame to frame shimmer the textures and destabilize
+        descriptors at distance).  Frames go one at a time: each has its own
+        culled quads."""
+        dev = torch.device(device)
+        q = self._on_device(dev)
+        brg = torch.from_numpy(self._bearings(cam, ss)).to(dev)         # (P, 3) float64
+        poses = np.asarray(poses_cw)
+        out = torch.zeros((len(poses), cam.rows, cam.cols), dtype=torch.uint8, device=dev)
+        for i, T in enumerate(poses):
+            R = T[:3, :3].astype(np.float32)
+            c = -R.T @ T[:3, 3].astype(np.float32)
+            idx = self._cull(c)
+            if len(idx):
+                p0 = self.quad_p0[idx]
+                num, cu, cv = (torch.from_numpy(a).to(dev) for a in (
+                    np.einsum("vk,vk->v", p0 - c[None, :], self.quad_n[idx]),
+                    np.einsum("vk,vk->v", c[None, :] - p0, self.quad_u[idx]),
+                    np.einsum("vk,vk->v", c[None, :] - p0, self.quad_v[idx])))
+                d = (brg @ torch.from_numpy(R.astype(np.float64)).to(dev)).to(torch.float32)
+                img = self._render_rays(q, d, torch.from_numpy(idx).to(dev), num, cu, cv)
+                if ss > 1:
+                    img = img.reshape(cam.rows, ss, cam.cols, ss).mean(dim=(1, 3))
+                out[i] = img.reshape(cam.rows, cam.cols).to(torch.uint8)
+        return out
+
+    def _render_rays(self, q: dict, d: torch.Tensor, idx: torch.Tensor, num: torch.Tensor,
+                     cu: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+        """Rays ``d`` (P, 3) float32 in the world against the culled quads
+        ``idx`` (V,), given (p0 - c).n, (c - p0).u and (c - p0).v of each ->
+        (P,) float64 sample values (the texel weights in float64, as
+        ``render`` forms them)."""
+        th, tw = self.atlas.shape[1], self.atlas.shape[2]
+        n, u, v = q["n"][idx], q["u"][idx], q["v"][idx]
+        hu, hv = q["hu"][idx], q["hv"][idx]
+        vals = []
+        for c0 in range(0, d.shape[0], self.RAY_CHUNK):
+            dc = d[c0:c0 + self.RAY_CHUNK]
+
+            def dots(a):                                          # (C, V): dc . a^T
+                return dc[:, 0:1] * a[:, 0] + dc[:, 1:2] * a[:, 1] + dc[:, 2:3] * a[:, 2]
+
+            denom = dots(n)
+            denom = torch.where(denom.abs() < 1e-9, torch.full_like(denom, 1e-9), denom)
+            lam = num[None, :] / denom
+            du, dv = dots(u), dots(v)
+            ok = ((lam > 1e-3) & ((cu[None, :] + lam * du).abs() < hu[None, :])
+                  & ((cv[None, :] + lam * dv).abs() < hv[None, :]))
+            lam_ok = torch.where(ok, lam, torch.full_like(lam, float("inf")))
+            w = torch.argmin(lam_ok, dim=1, keepdim=True)       # (C, 1) the nearest visible quad
+            hit = torch.isfinite(torch.gather(lam_ok, 1, w)[:, 0])
+            # the texture coordinates again, at the winning quad only
+            lam_w = torch.gather(lam, 1, w)[:, 0]
+            tu = cu[w[:, 0]] + lam_w * torch.gather(du, 1, w)[:, 0]
+            tv = cv[w[:, 0]] + lam_w * torch.gather(dv, 1, w)[:, 0]
+            qw = idx[w[:, 0]]
+            px = (tu + q["hu"][qw]) * self.res
+            py = (tv + q["hv"][qw]) * self.res
+            x0 = torch.minimum(torch.floor(px).clamp(min=0).to(torch.int64), q["tex_w"][qw] - 2)
+            y0 = torch.minimum(torch.floor(py).clamp(min=0).to(torch.int64), q["tex_h"][qw] - 2)
+            fx = torch.clamp(px.double() - x0, 0, 1)
+            fy = torch.clamp(py.double() - y0, 0, 1)
+            base = qw * (th * tw)
+            g = lambda yy, xx: q["atlas"][base + yy * tw + xx].double()  # noqa: E731
+            val = (g(y0, x0) * (1 - fx) * (1 - fy) + g(y0, x0 + 1) * fx * (1 - fy)
+                   + g(y0 + 1, x0) * (1 - fx) * fy + g(y0 + 1, x0 + 1) * fx * fy)
+            vals.append(torch.where(hit, val, torch.zeros_like(val)))
+        return torch.cat(vals)
+
+
+def course_trajectory(course, n_frames: int, laps: float = 1.0, look_ahead: float = 6.0,
+                      height: float = 0.0, start_s: float = 0.0):
+    """A forward-looking drive along a course's centre line -> (N, 4, 4)
+    T_cw: the camera on the centre line at ``height`` (camera +y is down,
+    so a negative height is above the road) looks at the centre-line point
+    ``look_ahead`` m further on, the KITTI viewing geometry."""
+    s = start_s + course.length * laps * np.arange(n_frames) / n_frames
+    pts = course.point(s)
+    tgts = course.point(s + look_ahead)
+    return np.stack([lookat_pose_cw(np.array([pts[i, 0], height, pts[i, 1]]),
+                                    np.array([tgts[i, 0], height, tgts[i, 1]]))
+                     for i in range(n_frames)])
+
+
+class Photometrics:
+    """Per-frame photometric degradation of a rendered uint8 frame:
+
+        photo = Photometrics(rng, exposure_drift=0.06, noise_sigma=4.0, motion_blur_px=5)
+        img = photo(renderer.render(cam, pose))
+
+    * motion blur: a ``motion_blur_px``-long line kernel along ``direction``
+      ("h" horizontal, else vertical), as a box mean over edge-padded rows;
+    * exposure: a gain that follows a random walk of step sigma
+      ``exposure_drift`` per frame, clamped to [0.4, 2.0] (auto-exposure
+      hunting, light that changes between visits);
+    * noise: additive Gaussian noise of sigma ``noise_sigma`` gray levels.
+
+    The stages work in float and the result is rounded and clipped to
+    uint8, as a sensor quantizes."""
+
+    def __init__(self, rng: np.random.Generator, exposure_drift: float = 0.0,
+                 noise_sigma: float = 0.0, motion_blur_px: int = 0, direction: str = "h"):
+        self.rng = rng
+        self.exposure_drift = float(exposure_drift)
+        self.noise_sigma = float(noise_sigma)
+        self.motion_blur_px = int(motion_blur_px)
+        self.direction = direction
+        self.gain = 1.0
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        x = img.astype(np.float32)
+        if self.motion_blur_px > 1:
+            k = self.motion_blur_px
+            axis = 1 if self.direction == "h" else 0
+            pad = [(0, 0), (0, 0)]
+            pad[axis] = (k // 2, k - 1 - k // 2)
+            xp = np.pad(x, pad, mode="edge")
+            # the window sums as differences of a float64 cumulative sum
+            # with a leading zero slab: sum of xp[i:i+k] = c[i+k] - c[i]
+            zshape = list(xp.shape)
+            zshape[axis] = 1
+            c = np.concatenate([np.zeros(zshape), np.cumsum(xp, axis=axis, dtype=np.float64)],
+                               axis=axis)
+            if axis == 1:
+                x = ((c[:, k:] - c[:, :-k]) / k).astype(np.float32)
+            else:
+                x = ((c[k:, :] - c[:-k, :]) / k).astype(np.float32)
+        if self.exposure_drift > 0:
+            self.gain = float(np.clip(self.gain + self.rng.normal(0.0, self.exposure_drift),
+                                      0.4, 2.0))
+            x = x * self.gain
+        if self.noise_sigma > 0:
+            x = x + self.rng.normal(0.0, self.noise_sigma, x.shape)
+        return np.clip(np.round(x), 0, 255).astype(np.uint8)
 
 
 def adversarial_match_cases(rng: np.random.Generator, cols=640, rows=480):

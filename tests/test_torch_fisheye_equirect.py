@@ -182,7 +182,7 @@ def _lm_problem(rng, cam, spec, stereo=False):
         obs = np.concatenate([obs, ur[:, None].astype(np.float32)], 1)
     sig = rng.choice([1.0, 1.44, 2.0736], N).astype(np.float32)
     mask = rng.random(N) > 0.05
-    T0 = jsyn.random_pose_cw(rng, max_angle=0.03, max_trans=0.1).astype(np.float32)
+    T0 = synthetic.random_pose_cw(rng, max_angle=0.03, max_trans=0.1).astype(np.float32)
     return T0, X, obs, sig, mask
 
 
@@ -311,12 +311,12 @@ def _equirect_ba_problem(rng, cols=1920, rows=960):
     n = 0
     seam = 0
     for i in range(6):
-        T_gt = jsyn.random_pose_cw(rng, max_angle=0.4, max_trans=0.8).astype(np.float32)
+        T_gt = synthetic.random_pose_cw(rng, max_angle=0.4, max_trans=0.8).astype(np.float32)
         uv, _, valid = (a.numpy() for a in cam.project(_t((X_gt @ T_gt[:3, :3].T
                                                            + T_gt[:3, 3]).astype(np.float32))))
         cam_valid[i] = True
         cam_opt[i] = i > 0
-        pert = jsyn.random_pose_cw(rng, max_angle=0.01, max_trans=0.03) if i else np.eye(4)
+        pert = synthetic.random_pose_cw(rng, max_angle=0.01, max_trans=0.03) if i else np.eye(4)
         T[i] = (pert @ T_gt).astype(np.float32)
         for j in np.where(valid)[0]:
             oc[n], ol[n] = i, j
@@ -523,7 +523,7 @@ def test_sim3_transform_optimizer_matches_jax(rng):
     from openvslam_tpu.optimize.sim3_transform import make_sim3_transform_optimizer as jax_opt
     from openvslam_tpu_torch.optimize.sim3_transform import make_sim3_transform_optimizer
 
-    R_gt, t_gt, s_gt = jsyn.random_sim3(rng, max_angle=0.3, max_trans=0.5, scale_range=(0.8, 1.3))
+    R_gt, t_gt, s_gt = synthetic.random_sim3(rng, max_angle=0.3, max_trans=0.5, scale_range=(0.8, 1.3))
     n = 128
     lm2 = jsyn.landmark_cloud(rng, n, center=(0, 0, 5), extent=(3, 2, 1.5))
     g_gt = (jnp.asarray(R_gt, jnp.float32), jnp.asarray(t_gt, jnp.float32), jnp.float32(s_gt))

@@ -73,3 +73,74 @@ def test_frontend_from_feature_config():
                       min_fast_thr=cfg.min_fast_threshold)
     assert fe.budgets == jfe.budgets and fe.capacity == jfe.capacity == 1032
     assert (fe.ini_fast_thr, fe.min_fast_thr, fe.pattern) == (20.0, 7.0, "learned")
+
+
+def _exp_jacobian_first_order(xi: np.ndarray) -> np.ndarray:
+    """(4, 4, 6) derivative of the SE(3) exp at a small twist, from the
+    hat basis G_k: d R / d w_k = G_k + (G_k W + W G_k) / 2, d t / d w_k =
+    G_k u / 2 + (G_k W + W G_k) u / 6, d t / d u = I + W / 2 + W^2 / 6, with
+    W = hat(w); the terms left out are O(|xi|^2)."""
+    G = [np.asarray(se3.hat(torch.eye(3, dtype=torch.float64)[k])) for k in range(3)]
+    w, u = xi[:3], xi[3:]
+    W = sum(w[k] * G[k] for k in range(3))
+    J = np.zeros((4, 4, 6))
+    for k in range(3):
+        J[:3, :3, k] = G[k] + (G[k] @ W + W @ G[k]) / 2
+        J[:3, 3, k] = G[k] @ u / 2 + (G[k] @ W + W @ G[k]) @ u / 6
+    J[:3, 3, 3:] = np.eye(3) + W / 2 + W @ W / 6
+    return J
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("at", [0.0, 1e-5])
+def test_se3_exp_autodiff_is_finite_at_small_angles(dtype, at):
+    """jacrev and jacfwd of the exp at and near 0 (the small-angle branch):
+    finite, in the argument's dtype, and equal to the hat-basis derivative
+    within 1e-6."""
+    from torch.func import jacfwd, jacrev
+
+    xi = torch.full((6,), at, dtype=dtype)
+    ref = _exp_jacobian_first_order(np.full(6, at))
+    for jac in (jacrev, jacfwd):
+        J = jac(se3.se3_exp)(xi)
+        assert J.dtype == dtype and bool(torch.isfinite(J).all())
+        np.testing.assert_allclose(J.double().numpy(), ref, rtol=0, atol=1e-6)
+
+
+def _se3_exp_before_the_guard(xi: torch.Tensor) -> torch.Tensor:
+    """The exp as it was written before its small-angle branch was made
+    safe to differentiate: the large-angle quotients divided by theta^2
+    everywhere."""
+    def coeffs(w):
+        theta2 = torch.sum(w * w, -1)
+        theta = torch.sqrt(torch.clamp(theta2, min=1e-16))
+        small = theta2 < 1e-8
+        a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+        b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+        c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                        (theta - torch.sin(theta)) / (theta2 * theta))
+        return a, b, c
+
+    w, u = xi[..., :3], xi[..., 3:]
+    a, b, c = coeffs(w)
+    W = se3.hat(w)
+    eye = torch.eye(3, dtype=W.dtype).expand(W.shape)
+    R = eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
+    V = eye + b[..., None, None] * W + c[..., None, None] * (W @ W)
+    return se3.from_Rt(R, (V @ u[..., None])[..., 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_se3_exp_forward_unchanged_by_the_guard(dtype):
+    """On a grid of rotation angles that spans the small-angle threshold
+    (theta = 1e-4) the exp's values equal the unguarded formula's bit for
+    bit, batched and one twist at a time."""
+    rng = np.random.default_rng(3)
+    mags = np.concatenate([np.geomspace(1e-9, 1e-1, 300), np.linspace(0.95e-4, 1.05e-4, 201),
+                           [0.0, 1e-4, 0.5, 3.0]])
+    d = rng.standard_normal((len(mags), 6))
+    d[:, :3] *= (mags / np.linalg.norm(d[:, :3], axis=1))[:, None]
+    xi = torch.tensor(d, dtype=dtype)
+    assert torch.equal(se3.se3_exp(xi), _se3_exp_before_the_guard(xi))
+    for x in xi[::50]:
+        assert torch.equal(se3.se3_exp(x), _se3_exp_before_the_guard(x))

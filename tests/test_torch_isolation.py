@@ -19,7 +19,11 @@
 * no module names a path outside the package (its native source and build
   live inside it), and a failed native build raises instead of falling
   back to Python;
-* ``Config.from_dict`` needs no PyYAML.
+* ``Config.from_dict`` needs no PyYAML;
+* the port's example runners (``examples_torch/``, one for each file of
+  ``examples/``) and its two user tools import none of the forbidden
+  packages (``cv2`` only lazily, in the video and camera runners), and
+  importing each with JAX and the JAX package blocked loads none of them.
 """
 import ast
 import os
@@ -285,3 +289,34 @@ def test_config_needs_no_yaml(tmp_path):
             "else:\n    raise SystemExit('from_yaml ran without PyYAML')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=tmp_path, env=env, timeout=120)
+
+
+def _runner_and_tool_sources():
+    d = os.path.join(ROOT, "examples_torch")
+    return ([os.path.join(d, f) for f in sorted(os.listdir(d)) if f.endswith(".py")]
+            + [os.path.join(ROOT, "tools", f"{n}_torch.py")
+               for n in ("train_vocab", "evaluate_trajectory")])
+
+
+def test_examples_and_tools_import_no_jax():
+    paths = _runner_and_tool_sources()
+    ours = {os.path.basename(p) for p in paths if os.sep + "examples_torch" + os.sep in p}
+    assert ours == {f for f in os.listdir(os.path.join(ROOT, "examples")) if f.endswith(".py")}
+    for path in paths:
+        lazy = ("cv2",) if os.path.basename(path) in ("run_video_slam.py",
+                                                      "run_camera_slam.py") else ()
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN and m not in lazy]
+        assert not bad, (path, bad)
+    code = ("import importlib.util, sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'openvslam_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"for i, path in enumerate({paths!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'_m{i}', path)\n"
+            "    mod = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            "    assert path.endswith('common.py') or callable(mod.main), path\n"
+            "loaded = {m.split('.')[0] for m, v in sys.modules.items() if v is not None}\n"
+            "assert not loaded & {'jax', 'flax', 'openvslam_tpu', 'msgpack', 'imageio', 'cv2', "
+            "'PIL', 'yaml'}, sorted(loaded)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env, timeout=120)

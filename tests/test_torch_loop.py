@@ -122,7 +122,7 @@ def test_sim3_ops_match_jax(rng, regime):
 def _horn_problem(rng, n=64, n_out=16):
     """tests/test_solvers.py::test_sim3_horn's transform, with noise and
     outliers added so the RANSAC has something to reject."""
-    R, t, s = jsyn.random_sim3(rng)
+    R, t, s = synthetic.random_sim3(rng)
     p1 = rng.standard_normal((n, 3))
     p2 = (s * (R @ p1.T)).T + t + rng.standard_normal((n, 3)) * 0.005
     p2[:n_out] += rng.standard_normal((n_out, 3))
@@ -178,7 +178,7 @@ def test_sim3_ransac_with_jax_draws_matches_jax(rng):
 def test_sim3_transform_optimizer_matches_jax(rng):
     """tests/test_posegraph.py::test_sim3_transform_refine's problem."""
     jcam = JaxPerspective.create(fx=500, fy=500, cx=320, cy=240, cols=640, rows=480)
-    R_gt, t_gt, s_gt = jsyn.random_sim3(rng, max_angle=0.3, max_trans=0.5, scale_range=(0.8, 1.3))
+    R_gt, t_gt, s_gt = synthetic.random_sim3(rng, max_angle=0.3, max_trans=0.5, scale_range=(0.8, 1.3))
     n = 128
     lm2 = jsyn.landmark_cloud(rng, n, center=(0, 0, 5), extent=(3, 2, 1.5))
     g_gt = _g(R_gt, t_gt, s_gt)
@@ -534,3 +534,86 @@ def test_system_closes_the_organic_lap():
     assert first < 10 and tracked[first:].mean() > 0.9
     assert loops >= 1 and edge
     assert ate < 0.2 and finite
+
+
+def test_pose_graph_measured_from_current_poses_leaves_them_in_place():
+    """A graph whose edges are measured from the current keyframe poses
+    starts at its optimum, also when tracking and BA have left the float32
+    rotations off SO(3) (by 2e-3 here, as over the city circuit): the graph
+    is built on the rotations projected onto SO(3), so solving it moves no
+    keyframe (before that projection the nodes' transposes were not their
+    inverses, and the solve moved them by centimetres)."""
+    from openvslam_tpu_torch.data.map_database import MapDatabase
+
+    cfg = Config.from_dict(_cfg_dict())
+    db = MapDatabase(kpt_capacity=8, max_kfs=16, max_lms=16)
+    rng = np.random.default_rng(4)
+    n = 12
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        T = synthetic.lookat_pose_cw((10 * np.cos(a), 0, 10 * np.sin(a)),
+                                     (10 * np.cos(a + 0.3), 0, 10 * np.sin(a + 0.3)))
+        S = rng.standard_normal((3, 3))
+        T[:3, :3] = (np.eye(3) + 1e-3 * (S + S.T)) @ T[:3, :3]
+        db.kf_pose_cw[k] = T.astype(np.float32)
+        db.kf_valid[k] = True
+        db.parent[k] = k - 1
+        db.covis[k] = {}
+        db.loop_edges[k] = set()
+    db.n_kfs = n
+    for k in range(n):
+        for d in (1, 2):
+            db.covis[k][(k + d) % n] = db.covis[(k + d) % n][k] = 150
+    db.loop_edges[0].add(n - 1)
+    db.loop_edges[n - 1].add(0)
+    off = max(float(np.abs(T[:3, :3] @ T[:3, :3].T - np.eye(3)).max()) for T in db.kf_pose_cw[:n])
+    assert off > 1e-3
+    before = db.kf_pose_cw[:n].copy()
+    go = GlobalOptimizationModule(cfg, cfg.camera, db, device="cpu")
+    go._optimize_pose_graph(fixed_kf=0)
+    after = db.kf_pose_cw[:n]
+    for T in after:
+        np.testing.assert_allclose(T[:3, :3] @ T[:3, :3].T, np.eye(3), atol=1e-6)
+    for T0, T1 in zip(before, after):
+        U, _, Vt = np.linalg.svd(T0[:3, :3].astype(np.float64))
+        np.testing.assert_allclose(T1[:3, :3], U @ Vt, atol=1e-5)
+        np.testing.assert_allclose(T1[:3, 3], T0[:3, 3], atol=1e-5)
+
+
+def test_tracker_carries_last_frame_with_a_loop_correction():
+    """When a loop correction or a global BA has moved the map since the
+    last frame was tracked (``db.geom_version``), the tracker carries that
+    frame with its reference keyframe, keeping the frame's pose relative to
+    it, so the motion model predicts the next frame in the corrected map
+    (ref tracking_module::update_last_frame).  Without such a move the last
+    frame keeps its pose, and the carry happens once."""
+    from types import SimpleNamespace
+
+    s = System(Config.from_dict(_cfg_dict()), device="cpu")
+    tr, db = s.tracker, s.map_db
+    tr.mapper = None                      # no keyframe insertion
+    T_ref = synthetic.lookat_pose_cw((0.0, 0.0, 0.0), (0.3, 0.0, 5.0))
+    T_last = synthetic.lookat_pose_cw((0.4, 0.1, 0.5), (0.6, 0.0, 5.0))
+    db.kf_valid[0], db.kf_pose_cw[0], db.n_kfs = True, T_ref.astype(np.float32), 1
+    tr.ref_kf = 0
+    tr.last_frame = SimpleNamespace(frame_id=4, pose_cw=T_ref.astype(np.float32))
+    frame = SimpleNamespace(frame_id=5, pose_cw=T_last.astype(np.float32))
+    tr._accept(frame, 100)
+    tr.last_frame = frame
+    tr._reanchor_last_frame()
+    np.testing.assert_array_equal(frame.pose_cw, T_last.astype(np.float32))
+    # a correction moves the keyframe by 1.2 m and 3 degrees
+    corr = np.eye(4)
+    corr[:3, :3] = synthetic.lookat_pose_cw((0, 0, 0), (np.tan(np.radians(3.0)), 0, 1))[:3, :3]
+    corr[:3, 3] = (1.2, 0.0, -0.3)
+    T_new = (T_ref @ corr).astype(np.float32)
+    db.kf_pose_cw[0] = T_new
+    db.geom_version += 1
+    tr._reanchor_last_frame()
+    want = T_last @ np.linalg.inv(T_ref) @ T_new.astype(np.float64)
+    np.testing.assert_allclose(frame.pose_cw, want, atol=1e-5)
+    carried = frame.pose_cw.copy()
+    db.kf_pose_cw[0] = T_ref.astype(np.float32)
+    db.geom_version += 1
+    tr._reanchor_last_frame()
+    np.testing.assert_array_equal(frame.pose_cw, carried)

@@ -23,7 +23,6 @@ import torch
 
 from openvslam_tpu.optimize.ba import make_local_ba as jax_local_ba
 from openvslam_tpu.optimize.residuals import make_multicam_mono_residual as jax_multicam
-from openvslam_tpu.utils.synthetic import random_pose_cw
 from openvslam_tpu_torch.camera import camera_to_config, make_camera_from_config
 from openvslam_tpu_torch.config import Config
 from openvslam_tpu_torch.data import Frame, MapDatabase
@@ -153,7 +152,7 @@ def test_merged_map_local_ba_takes_the_multicam_edge(rng):
     m = MappingModule(_config(), make_camera_from_config(SPEC_A), db, device="cpu")
     # perturb the second camera's last keyframe; every other quantity exact
     k = kfs_b[1]
-    pert = random_pose_cw(np.random.default_rng(1), max_angle=0.02, max_trans=0.05)
+    pert = synthetic.random_pose_cw(np.random.default_rng(1), max_angle=0.02, max_trans=0.05)
     db.kf_pose_cw[k] = (pert @ poses[3]).astype(np.float32)
     assert np.linalg.norm(_centre(db.kf_pose_cw[k]) - _centre(poses[3])) > 0.02
     before = db.kf_pose_cw.copy()

@@ -11,7 +11,8 @@ and prints one JSON line per point:
   equirectangular camera, 2000 keypoints, 8 levels);
 
 both on ``camera_scene``: phase 6's octagon room and the first
-``CAMERA_FRAMES`` frames of its lap, loop detection on.  Each line holds
+``CAMERA_FRAMES`` (8) or ``EQUIRECT_FRAMES`` (8b) frames of its lap, loop
+detection on.  Each line holds
 the first tracked frame, the tracked share after it, the ATE(sim3) of the
 System's tracked trajectory (``tracked_poses``) and of its keyframes, the
 fused-step frames, the keyframes and the loops closed.  The tracked share
@@ -19,7 +20,7 @@ and the trajectory ATE are the readings that chip_smoke's
 ``FISHEYE_REF`` and ``EQUIRECT_REF`` record.  ``--key K`` seeds the JAX
 tracker's bootstrap draws with ``jax.random.PRNGKey(K)`` instead of its
 own key 42: which draws bootstrap the map is part of a point's
-run-to-run spread.  About 25 minutes for 8 and 60 for 8b on 3 cores.
+run-to-run spread.  About 25 minutes for 8 and 30 for 8b (60 frames) on 3 cores.
 
     JAX_PLATFORMS=cpu python tools/camera_points_jax.py 8
     JAX_PLATFORMS=cpu python tools/camera_points_jax.py 8b
